@@ -1,0 +1,77 @@
+"""Structure of the PyTorch port: it imports nothing of JAX or of the JAX
+package, and its verbatim copies of the JAX package's pure-Python modules
+have not drifted from their originals."""
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+REF = ROOT / "src" / "repro"
+
+#: modules the port copies unchanged apart from the package name in imports
+COPIED = sorted(
+    [p.relative_to(REF).as_posix() for d in ("core", "durable", "store") for p in (REF / d).glob("*.py")]
+    + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py"]
+)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = {m for m in _imported_roots(path) if m in ("repro", "jax", "jaxlib") or m.startswith("jax")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_copied_module_list_is_complete():
+    assert len(COPIED) == 19
+    assert all((PORT / rel).exists() for rel in COPIED)
+
+
+def _normalised(text: str) -> str:
+    lines = []
+    for line in text.splitlines():
+        if line.lstrip().startswith(("from ", "import ")):
+            line = line.replace("repro_torch", "repro")
+        lines.append(line)
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_has_not_drifted(rel):
+    """Drift guard: a change to the protocol in repro/ must be carried to the
+    port's copy (and vice versa), or this fails."""
+    assert _normalised((PORT / rel).read_text()) == _normalised((REF / rel).read_text())
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
+    """``device=None`` means CUDA; without a card the entry points raise
+    rather than fall back to the CPU."""
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    from repro_torch.checkpoint import TrainerStateObject
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.train import run_resilient_training
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        run_resilient_training(tmp_path, get_config("gemma_2b", smoke=True), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        TrainerStateObject(tmp_path, lambda: ({}, {}), lambda *a: None)
+    assert not (tmp_path / "coordinator.jsonl").exists()
