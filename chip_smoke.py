@@ -6,11 +6,27 @@
 Phases, each printing its own line and raising on failure:
 
   env      torch / CUDA versions and the card's name and power limit
-  build    compile the delta-codec CUDA kernels from src/repro_torch/kernels/csrc
-           with nvcc for sm_90a (into build/kernels/)
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           1-layer gemma-2b stream size (619,526 rows of 1024), f32 and bf16
-           inputs: bit-for-bit equality, median time, GB/s, share of the bound
+  build    compile the three CUDA sources of src/repro_torch/kernels/csrc
+           (delta codec, SSD, flash attention) with nvcc for sm_90a, one nvcc
+           per source, all started together (into build/kernels/)
+  kernels  each delta-codec kernel against its plain PyTorch version on the
+           card, at the 1-layer gemma-2b stream size (619,526 rows of 1024),
+           f32 and bf16 inputs: bit-for-bit equality, median time, GB/s,
+           share of the bound
+  ssd      the SSD kernel against the sequential recurrence ssd_ref at the
+           full-width mixer shape of mamba2-370m (x (4, 2048, 32, 64), B/C
+           (4, 2048, 1, 128), chunk 256), f32 and bf16: error within 1e-4 /
+           5e-2, median time, share of the bound, plain time
+  ssm      mamba2-370m at full width (48 layers, batch 4 x 2048, f32, seeded
+           random weights): forward_ssm (the model's chunked path), then the
+           same layers with every mixer on ssd_impl=ops.ssd_model_impl; the
+           SSD kernel is launched exactly 48 times and the logits agree
+  flash    ops.flash_attention at gemma-2b's attention shape (q (4, 2048, 8,
+           256), k/v (4, 2048, 1, 256)), causal and non-causal, f32 and bf16,
+           against flash_attention_ref over the repeated kv heads (2e-5 /
+           2e-2); median time beside the plain version and
+           torch.nn.functional.scaled_dot_product_attention (the yardstick
+           only: the port never calls it) and the backend SDPA took
   trainer  gemma-2b at full width with depth cut to 1 layer: data, trainer and
            metrics StateObjects on a LocalCluster; the version-0 base persist,
            two train steps, one forced delta persist (CUDA encode), a trainer
@@ -49,10 +65,21 @@ import torch.utils.deterministic  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 RUN_DIR = HERE / "build" / "chip_smoke_run"
-#: H100 SXM HBM3 rate and f32 (non-tensor-core) peak, NVIDIA's data sheet
+#: H100 SXM HBM3 rate, f32 (non-tensor-core) and dense bf16 tensor-core
+#: peaks, NVIDIA's data sheet
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 BLOCK = 1024
+#: mamba2-370m at full width: batch x sequence of the ssd and ssm phases
+SSM_BATCH, SSM_SEQ = 4, 2048
+#: gemma-2b's attention: batch x sequence of the flash phase
+FLASH_BATCH, FLASH_SEQ = 4, 2048
+#: the kernel-route logits against forward_ssm's, relative to max |logit|.
+#: Both routes take f32 exp(cum_i - cum_j) of decay sums that reach a few
+#: hundred within a 256 chunk, and 48 layers amplify the rounding: the two
+#: differ by about 3e-4 on an H100 (PERF.md, examples/torch_ssd_drift.py)
+SSM_TOL = 1e-3
 
 
 def say(phase: str, msg: str) -> None:
@@ -81,9 +108,20 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes: int, ops: int, peak: float = F32_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """|got - want| <= tol + tol |want| everywhere (numpy's allclose with
+    atol = rtol = tol, as tests/test_kernels.py); returns max |got - want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if not bool(torch.isfinite(got).all()) or bool((diff > tol + tol * want.abs()).any()):
+        raise AssertionError(f"{name}: kernel != plain version (max abs err {err}, tol {tol})")
+    return err
 
 
 # --------------------------------------------------------------------------- #
@@ -138,6 +176,186 @@ def phase_kernels(nb: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return results
+
+
+# --------------------------------------------------------------------------- #
+def _ssd_inputs(gen, h: int, p: int, n: int, dt_type):
+    """The recipe of tests/test_kernels.py:72-81 at the full-width shape."""
+    b, s = SSM_BATCH, SSM_SEQ
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dt_type)
+    dt = (torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+          * 0.1).to(dt_type)
+    A = -torch.exp(torch.randn(h, generator=gen, device="cuda") * 0.3)
+    Bm = (torch.randn(b, s, 1, n, generator=gen, device="cuda") * 0.5).to(dt_type)
+    Cm = (torch.randn(b, s, 1, n, generator=gen, device="cuda") * 0.5).to(dt_type)
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd(cfg) -> dict:
+    from repro_torch.kernels import ops, ref
+
+    s_cfg = cfg.ssm
+    h, p, n, L = s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state, s_cfg.chunk_size
+    b, s = SSM_BATCH, SSM_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    for dt_type, tag, tol, peak in ((torch.float32, "f32", 1e-4, F32_OPS_PER_S),
+                                    (torch.bfloat16, "bf16", 5e-2, BF16_OPS_PER_S)):
+        x, dt, A, Bm, Cm = _ssd_inputs(gen, h, p, n, dt_type)
+        y = ops.ssd(x, dt, A, Bm, Cm, chunk=L)
+        torch.cuda.synchronize()
+        err = check_close(f"ssd {tag}", y, ref.ssd_ref(x, dt, A, Bm, Cm, L), tol)
+        ms = median_ms(lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=L), 10)
+        plain_ms = median_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm, L), 3)
+        # products and sums the chunked algorithm needs: the intra-chunk
+        # pairs j <= i (C.B over N, then the gate times x over P), C.state
+        # and the state update (2 L N P each), per (batch, head, chunk)
+        tri = L * (L + 1) // 2
+        nops = b * h * (s // L) * (2 * tri * (n + p) + 4 * L * n * p)
+        esz = x.element_size()
+        nbytes = esz * (2 * x.numel() + Bm.numel() + Cm.numel() + dt.numel()) + 4 * A.numel()
+        b_ms, b_by = bound_ms(nbytes, nops, peak)
+        say("ssd", f"{tag}: within {tol} of ssd_ref (max abs err {err:.3e}); median {ms:.4f} ms "
+            f"({nops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the {b_by} bound {b_ms:.4f} ms); "
+            f"plain version {plain_ms:.1f} ms; no library call: no single PyTorch call "
+            f"computes the SSD recurrence")
+        results[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            max_abs_err=err)
+        del x, dt, A, Bm, Cm, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_ssm(cfg) -> int:
+    """Path (A): the forward of mamba2-370m at full width, once on the
+    model's chunked SSD and once with every mixer on the SSD kernel. Returns
+    the kernel's launches on the kernel route."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_head, forward_ssm, init_params, param_count, param_descs
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.ssm import mamba2_mixer
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_SEQ), generator=gen, device="cuda")
+
+    def kernel_route():
+        x = params["embed"][tokens]
+        for i in range(cfg.num_layers):
+            lp = tree_map(lambda w: w[i], params["layers"])
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            out, _ = mamba2_mixer(lp["mixer"], h, cfg, ssd_impl=ops.ssd_model_impl)
+            x = x + out
+        return apply_head(cfg, params, x)
+
+    with torch.no_grad():
+        forward_ssm(cfg, params, tokens)  # warm up both routes (cuBLAS, allocator)
+        kernel_route()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = forward_ssm(cfg, params, tokens)
+        torch.cuda.synchronize()
+        t_chunked = time.perf_counter() - t0
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = kernel_route()
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        launches = ops.LAUNCHES["ssd"]
+    shape = (SSM_BATCH, SSM_SEQ, cfg.vocab_padded)
+    if tuple(got.shape) != shape or tuple(want.shape) != shape:
+        raise AssertionError(f"logits {tuple(got.shape)} / {tuple(want.shape)}, expected {shape}")
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        raise AssertionError("non-finite logits")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"the kernel route launched the SSD kernel {launches} times, "
+                             f"expected {cfg.num_layers}")
+    rel = float((got - want).abs().max() / want.abs().max())
+    if rel > SSM_TOL:
+        raise AssertionError(f"kernel-route logits differ from forward_ssm by {rel:.3e} "
+                             f"of max |logit| (tolerance {SSM_TOL})")
+    say("ssm", f"{cfg.name} x{cfg.num_layers} layers, {param_count(param_descs(cfg)):,} "
+        f"parameters, batch {SSM_BATCH} x {SSM_SEQ}: forward_ssm {t_chunked:.3f} s; kernel "
+        f"route {t_kernel:.3f} s with {launches} SSD launches; logits {shape}, max |diff| "
+        f"{rel:.3e} of max |logit| {float(want.abs().max()):.4f} (tolerance {SSM_TOL})")
+    del params, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _sdpa(q, k, v, causal: bool):
+    """The library yardstick: one SDPA call on the same (B,S,N,D) inputs, in
+    SDPA's (B,N,S,D) layout, with kv heads shared (enable_gqa)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+        enable_gqa=True)
+
+
+def phase_flash(cfg) -> tuple:
+    """Path (B): ops.flash_attention at gemma-2b's attention geometry, causal
+    and non-causal, f32 and bf16. Returns (results, launches on the path)."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels import ops, ref
+
+    b, s, nq, nkv, d = FLASH_BATCH, FLASH_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(dt_type, tag, causal)
+             for dt_type, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+             for causal in (True, False)]
+    inputs = {tag: tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt_type)
+                         for n in (nq, nkv, nkv))
+              for dt_type, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
+    ops.reset_launch_counts()
+    outs = {(tag, causal): ops.flash_attention(*inputs[tag], causal=causal)
+            for _, tag, causal in cases}
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_attention"]
+    if launches != len(cases):
+        raise AssertionError(f"flash path launched {launches} kernels, expected {len(cases)}")
+    results = {}
+    for dt_type, tag, causal in cases:
+        q, k, v = inputs[tag]
+        tol, peak = (2e-5, F32_OPS_PER_S) if tag == "f32" else (2e-2, BF16_OPS_PER_S)
+        name = f"flash {tag} {'causal' if causal else 'non-causal'}"
+        err = check_close(name, outs[(tag, causal)],
+                          ref.flash_attention_gqa_ref(q, k, v, causal=causal), tol)
+        ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10)
+        plain_ms = median_ms(lambda: ref.flash_attention_gqa_ref(q, k, v, causal=causal), 5)
+        backend = SDPBackend(torch._fused_sdp_choice(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+            enable_gqa=True)).name
+        note = ""
+        try:
+            lib_ms = median_ms(lambda: _sdpa(q, k, v, causal), 10)
+        except RuntimeError as exc:
+            if "deterministic" not in str(exc):
+                raise
+            torch.use_deterministic_algorithms(False)
+            try:
+                lib_ms = median_ms(lambda: _sdpa(q, k, v, causal), 10)
+            finally:
+                torch.use_deterministic_algorithms(True)
+            note = " (timed with deterministic mode off: it refuses this call)"
+        pairs = s * (s + 1) // 2 if causal else s * s
+        nops = 4 * d * pairs * b * nq
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(nbytes, nops, peak)
+        say("flash", f"{tag} {'causal' if causal else 'non-causal'}: within {tol} of "
+            f"flash_attention_ref (max abs err {err:.3e}); median {ms:.4f} ms "
+            f"({nops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the {b_by} bound "
+            f"{b_ms:.4f} ms); plain version {plain_ms:.4f} ms; SDPA ({backend}) "
+            f"{lib_ms:.4f} ms{note}; kernel / SDPA {ms / lib_ms:.1f}x")
+        results[(tag, causal)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                      max_abs_err=err, library_ms=lib_ms)
+    del inputs, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -340,8 +558,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import delta_encode as kmod
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import delta_encode as k_delta
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import ssd as k_ssd
     from repro_torch.models import param_count, param_descs
 
     torch.use_deterministic_algorithms(True)
@@ -356,31 +576,49 @@ def main() -> int:
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); {card}")
 
-    path, secs = kmod.build()
-    say("build", f"nvcc {' '.join(kmod.NVCC_FLAGS)}: {path.relative_to(HERE)} "
-        + (f"compiled in {secs:.1f} s" if secs else "already built"))
+    t0 = time.perf_counter()
+    sources = (k_delta.SOURCE, k_ssd.SOURCE, k_flash.SOURCE)
+    for src, (path, secs) in zip(sources, build.build_all(sources)):
+        regs = [ln.split(":", 1)[1].strip() for ln in path.with_suffix(".log").read_text()
+                .splitlines() if "Used" in ln] if secs else []
+        say("build", f"{src.name}: {path.relative_to(HERE)} "
+            + (f"compiled in {secs:.1f} s; ptxas: {'; '.join(regs)}" if secs else "already built"))
+    say("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: all built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     full = dataclasses.replace(get_config("gemma_2b"), num_layers=1)
     nb = -(-param_count(param_descs(full)) // BLOCK)
     kern = phase_kernels(nb)
 
+    mamba = get_config("mamba2_370m")
+    ssd_res = phase_ssd(mamba)
+    ssd_launches = phase_ssm(mamba)
+    flash_res, flash_launches = phase_flash(get_config("gemma_2b"))
+
     ops.reset_launch_counts()
     phase_trainer(full)
     launches = dict(ops.LAUNCHES)
     say("trainer", f"kernel launches on the main path: {launches}")
+    launches.update(ssd=ssd_launches, flash_attention=flash_launches)
 
     phase_loop(get_config("gemma_2b", smoke=True))
 
-    src = kmod.SOURCE.relative_to(HERE).as_posix()
+    # the line reports each kernel at f32 inputs (flash: causal)
+    measured = {name: kern[(name, "f32")] for name in ("delta_encode", "delta_decode")}
+    measured["ssd"] = ssd_res["f32"]
+    measured["flash_attention"] = flash_res[("f32", True)]
+    source = {"delta_encode": k_delta.SOURCE, "delta_decode": k_delta.SOURCE,
+              "ssd": k_ssd.SOURCE, "flash_attention": k_flash.SOURCE}
     replaces = {"delta_encode": "src/repro/kernels/delta_encode.py:24",
-                "delta_decode": "src/repro/kernels/delta_encode.py:32"}
+                "delta_decode": "src/repro/kernels/delta_encode.py:32",
+                "ssd": "src/repro/kernels/ssd.py:24",
+                "flash_attention": "src/repro/kernels/flash_attention.py:26"}
     line = {"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=replaces[name],
-             launches=launches[name], max_abs_err=kern[(name, "f32")]["max_abs_err"],
-             ms=kern[(name, "f32")]["ms"], plain_ms=kern[(name, "f32")]["plain_ms"],
-             bound_ms=kern[(name, "f32")]["bound_ms"],
-             bound_by=kern[(name, "f32")]["bound_by"], library_ms=None)
-        for name in ("delta_encode", "delta_decode")
+        dict(name=name, route="cuda", source=source[name].relative_to(HERE).as_posix(),
+             replaces=replaces[name], launches=launches[name], max_abs_err=m["max_abs_err"],
+             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+             bound_by=m["bound_by"], library_ms=m.get("library_ms"))
+        for name, m in measured.items()
     ]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

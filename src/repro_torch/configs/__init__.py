@@ -1,6 +1,6 @@
-"""Architecture registry of the port. Only ``gemma_2b`` is ported so far;
-the other architectures of ``repro.configs`` follow with their model
-families (ROADMAP.md)."""
+"""Architecture registry of the port: ``gemma_2b`` (dense) and
+``mamba2_370m`` (ssm). The other architectures of ``repro.configs`` follow
+with their model families (ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -8,9 +8,9 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCHITECTURES: List[str] = ["gemma_2b"]
+ARCHITECTURES: List[str] = ["gemma_2b", "mamba2_370m"]
 
-_ALIASES = {"gemma-2b": "gemma_2b"}
+_ALIASES = {"gemma-2b": "gemma_2b", "mamba2-370m": "mamba2_370m"}
 
 
 def canonical(name: str) -> str:

@@ -5,10 +5,8 @@ Port of ``repro/kernels/delta_encode.py``. The kernels live in
 int8 codes with a per-row f32 scale); see that file for what bounds them on
 the H100 and how the design follows.
 
-Build: at first use on a CUDA tensor, ``nvcc`` compiles the source for
-``sm_90a`` into a shared library with a plain C interface under
-``build/kernels/`` at the repository root (listed in ``.gitignore``), named by
-the source's hash, and ``ctypes`` loads it. Nothing is built on import.
+Build: ``build.py`` compiles the source with ``nvcc`` for ``sm_90a`` at first
+use on a CUDA tensor and loads it with ``ctypes``. Nothing is built on import.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches so a run
@@ -17,81 +15,22 @@ can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional, Tuple
-
 import torch
 
-from . import ref
+from . import build, ref
+from .build import LAUNCHES
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "delta_codec.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC"]
-
-#: kernel launches by name since the last ``reset_launch_counts``
-LAUNCHES: Dict[str, int] = {"delta_encode": 0, "delta_decode": 0}
+SOURCE = build.CSRC / "delta_codec.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
-_lib_mu = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the delta codec kernels need it")
-    return found
-
-
-def build() -> Tuple[Path, float]:
-    """Compile the kernels unless a library for this source already exists.
-    Returns (library path, seconds spent compiling; 0.0 when reused)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libdelta_codec_{digest}.so"
-    if out.exists():
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if proc.stderr.strip():
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_mu:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.delta_encode.argtypes = [p, p, p, p, i64, i32, i32, p]
-            lib.delta_encode.restype = i32
-            lib.delta_decode.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-            lib.delta_decode.restype = i32
-            _lib = lib
-        return _lib
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    return build.load(SOURCE, {
+        "delta_encode": ([p, p, p, p, i64, i32, i32, p], i32),
+        "delta_decode": ([p, p, p, p, i64, i32, i32, i32, p], i32),
+    })
 
 
 def _check_rows(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
@@ -108,11 +47,6 @@ def _check_rows(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
 def _check_block(blk: int) -> None:
     if blk % 4 or not 0 < blk <= 1024:
         raise ValueError(f"rows must be a multiple of 4 elements, at most 1024; got {blk}")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} launch failed with cudaError {err}")
 
 
 def delta_encode(new: torch.Tensor, prev: torch.Tensor):
@@ -133,7 +67,7 @@ def delta_encode(new: torch.Tensor, prev: torch.Tensor):
             new.data_ptr(), prev.data_ptr(), codes.data_ptr(), scales.data_ptr(),
             nb, blk, _DTYPE_CODE[new.dtype], stream,
         )
-    _raise_on(err, "delta_encode")
+    build.raise_on(err, "delta_encode")
     LAUNCHES["delta_encode"] += 1
     return codes, scales
 
@@ -160,6 +94,6 @@ def delta_decode(codes: torch.Tensor, scales: torch.Tensor, prev: torch.Tensor,
             codes.data_ptr(), scales.data_ptr(), prev.data_ptr(), out.data_ptr(),
             nb, blk, _DTYPE_CODE[prev.dtype], _DTYPE_CODE[dtype], stream,
         )
-    _raise_on(err, "delta_decode")
+    build.raise_on(err, "delta_decode")
     LAUNCHES["delta_decode"] += 1
     return out

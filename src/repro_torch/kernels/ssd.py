@@ -1,0 +1,80 @@
+"""Mamba-2 chunked SSD: the hand-written CUDA kernel and its wrapper.
+
+Port of ``repro/kernels/ssd.py`` (``_ssd_kernel`` :24 and ``ssd`` :77). The
+kernel lives in ``csrc/ssd.cu`` (one CTA per (batch, head) walking the chunks
+in order, the f32 state in shared memory); see that file for what bounds it
+on the H100 and how the design follows. Unlike the reference's wrapper it
+reads the G groups of B and C in place rather than repeating them to H heads,
+and it keeps the (B, S, H, P) layout rather than transposing to head-major.
+
+A tensor on the CPU goes to the plain version ``ref.ssd_ref``; a CUDA tensor
+launches the kernel or raises. The kernel takes a chunk of at most 64 or a
+multiple of 64, and as much shared memory as fits a block (227 KB; 147 KB
+at P 64, N 128, chunk 256); its launcher refuses other shapes, and the
+wrapper raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+from .build import LAUNCHES
+
+SOURCE = build.CSRC / "ssd.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _library() -> ctypes.CDLL:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    return build.load(SOURCE, {"ssd_forward": ([p] * 6 + [i32] * 8 + [p], i32)})
+
+
+def _check_shapes(x, dt, A, Bm, Cm, chunk: int) -> None:
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"x must be (B,S,H,P) and Bm/Cm (B,S,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(Bm.shape)}")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    want = {"dt": (b, s, h), "A": (h,), "Bm": (b, s, g, n), "Cm": (b, s, g, n)}
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+    if h % g:
+        raise ValueError(f"{g} groups do not divide {h} heads")
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """x (B,S,H,P), dt (B,S,H) post-softplus, A (H,) negative, Bm/Cm (B,S,G,N)
+    -> y (B,S,H,P) in x's dtype (the final state stays in the kernel)."""
+    _check_shapes(x, dt, A, Bm, Cm, chunk)
+    if all(t.device.type == "cpu" for t in (x, dt, A, Bm, Cm)):
+        return ref.ssd_ref(x, dt, A, Bm, Cm, chunk)
+    dev = x.device
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"ssd has no kernel for device {dev}")
+    if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"x, Bm and Cm must share float32 or bfloat16; got {x.dtype}, "
+                        f"{Bm.dtype}, {Cm.dtype}")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt32 = dt.to(torch.float32).contiguous()   # exact: the kernel computes in f32
+    A32 = A.to(torch.float32).contiguous()
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().ssd_forward(
+            x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), b, s, h, p, g, n, chunk, _DTYPE_CODE[x.dtype], stream,
+        )
+    build.raise_on(err, "ssd")
+    LAUNCHES["ssd"] += 1
+    return y

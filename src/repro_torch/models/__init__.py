@@ -1,11 +1,14 @@
-"""Torch model substrate: configs, parameter descriptors, the dense forward."""
+"""Torch model substrate: configs, parameter descriptors, the dense and ssm forwards."""
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES, shape_by_name
 from .params import PDesc, init_params, param_count, params_from_jax, stack, stack_tree
-from .transformer import DenseLM, apply_head, forward_dense, lm_loss, param_descs
+from .ssm import mamba2_mixer, ssd_chunked, ssd_decode_step
+from .transformer import (DenseLM, apply_head, forward, forward_dense, forward_ssm, lm_loss,
+                          param_descs)
 
 __all__ = [
     "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig",
     "SHAPES", "shape_by_name",
     "PDesc", "init_params", "param_count", "params_from_jax", "stack", "stack_tree",
-    "DenseLM", "apply_head", "forward_dense", "lm_loss", "param_descs",
+    "mamba2_mixer", "ssd_chunked", "ssd_decode_step",
+    "DenseLM", "apply_head", "forward", "forward_dense", "forward_ssm", "lm_loss", "param_descs",
 ]

@@ -1,11 +1,14 @@
-"""Dense decoder-only model, training path (port of ``repro/models/transformer.py``).
+"""Model assembly, train/prefill path (port of ``repro/models/transformer.py``).
 
-Covers the flat plan of the ``dense`` family (gemma-2b): token embedding,
-a stack of identical attention + MLP blocks whose weights are stacked along
-a leading layer axis, and a tied or separate LM head. The reference scans
-the stack with ``lax.scan``; here a Python loop indexes the stacked weights.
-MoE, MLA, the gemma3 local/global plan and the other families come with
-later slices (ROADMAP.md).
+Family map (as the reference's ``_FORWARD``):
+  dense -> forward_dense  (gemma-2b: flat plan of attention + MLP blocks)
+  ssm   -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks, no cache)
+
+Each family is token embedding, a stack of identical blocks whose weights
+are stacked along a leading layer axis, and a tied or separate LM head. The
+reference scans the stack with ``lax.scan``; here a Python loop indexes the
+stacked weights. MoE, MLA, the gemma3 local/global plan, the hybrid, encdec
+and vlm families and the decode caches come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,16 +22,20 @@ from ..tree import tree_flatten, tree_map, tree_unflatten
 from .config import ModelConfig
 from .layers import attention, attn_descs, mlp, mlp_descs, rms_norm
 from .params import PDesc, stack_tree
+from .ssm import mamba2_mixer, ssm_descs
 
 
-def _block_descs(cfg: ModelConfig) -> Dict:
+def _block_descs(cfg: ModelConfig, *, kind: str) -> Dict:
+    """kind: attn | ssm"""
     d = cfg.d_model
-    return {
-        "ln1": PDesc((d,), ("embed",), init="zeros"),
-        "attn": attn_descs(cfg),
-        "ln2": PDesc((d,), ("embed",), init="zeros"),
-        "mlp": mlp_descs(cfg),
-    }
+    descs: Dict = {"ln1": PDesc((d,), ("embed",), init="zeros")}
+    if kind == "ssm":
+        descs["mixer"] = ssm_descs(cfg)
+        return descs  # mamba block has its own epilogue norm
+    descs["attn"] = attn_descs(cfg)
+    descs["ln2"] = PDesc((d,), ("embed",), init="zeros")
+    descs["mlp"] = mlp_descs(cfg)
+    return descs
 
 
 def _embed_descs(cfg: ModelConfig) -> Dict:
@@ -42,15 +49,31 @@ def _embed_descs(cfg: ModelConfig) -> Dict:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family == "ssm" and cfg.ssm is not None:
+        return
     if cfg.family != "dense" or cfg.global_period or cfg.moe or cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: only the flat dense plan is ported yet")
+        raise NotImplementedError(
+            f"{cfg.name}: only the flat dense plan and the ssm family are ported yet")
+
+
+def dense_descs(cfg: ModelConfig) -> Dict:
+    descs = _embed_descs(cfg)
+    descs["layers"] = stack_tree(_block_descs(cfg, kind="attn"), cfg.num_layers)
+    return descs
+
+
+def ssm_descs_tree(cfg: ModelConfig) -> Dict:
+    descs = _embed_descs(cfg)
+    descs["layers"] = stack_tree(_block_descs(cfg, kind="ssm"), cfg.num_layers)
+    return descs
+
+
+_DESCS = {"dense": dense_descs, "ssm": ssm_descs_tree}
 
 
 def param_descs(cfg: ModelConfig) -> Dict:
     _check_supported(cfg)
-    descs = _embed_descs(cfg)
-    descs["layers"] = stack_tree(_block_descs(cfg), cfg.num_layers)
-    return descs
+    return _DESCS[cfg.family](cfg)
 
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -68,23 +91,52 @@ def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, *, kind: str) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kind == "ssm":
+        out, _ = mamba2_mixer(lp["mixer"], h, cfg)
+        return x + out
     x = x + attention(lp["attn"], h, cfg, positions)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(lp["mlp"], h2, cfg.activation)
 
 
-def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab_padded)."""
-    _check_supported(cfg)
+def _stack(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, kind: str) -> torch.Tensor:
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     x = _embed(cfg, params, tokens)
     for i in range(cfg.num_layers):
         lp = tree_map(lambda w: w[i], params["layers"])
-        x = _block_apply(cfg, lp, x, positions)
+        x = _block_apply(cfg, lp, x, positions, kind=kind)
     return apply_head(cfg, params, x)
+
+
+def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab_padded)."""
+    _check_supported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not dense")
+    return _stack(cfg, params, tokens, "attn")
+
+
+def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab_padded), every mixer on the
+    model's own chunked SSD (the reference's forward passes no ssd_impl)."""
+    _check_supported(cfg)
+    if cfg.family != "ssm":
+        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not ssm")
+    return _stack(cfg, params, tokens, "ssm")
+
+
+_FORWARD = {"dense": forward_dense, "ssm": forward_ssm}
+
+
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Dispatch by family, as the reference's ``forward``; returns logits
+    only (the reference also returns its decode cache and MoE aux loss,
+    which these families do not produce without a cache)."""
+    _check_supported(cfg)
+    return _FORWARD[cfg.family](cfg, params, tokens)
 
 
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (delta codec, SSD, flash attention) against
+their plain versions, on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is False (a
 CUDA kernel has no CPU mode). This file imports no JAX, so it runs on a GPU
@@ -13,6 +14,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as flash_attention_core  # noqa: E402
+
+
+def _launches():
+    return dict(ops.LAUNCHES)
 
 # the shapes of tests/test_kernels.py, plus full 1024-wide codec rows
 SHAPES = [(4, 256), (16, 1024), (1, 128), (2048, 1024)]
@@ -43,3 +49,114 @@ def test_cuda_kernels_match_plain_versions_bit_for_bit(nb, blk, dtype):
         assert torch.equal(dec, ref.delta_decode_ref(codes, scales, prev, dtype=out))
     assert ops.LAUNCHES["delta_encode"] == before["delta_encode"] + 1
     assert ops.LAUNCHES["delta_decode"] == before["delta_decode"] + 2
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    # the plain versions' products must run in full f32 (PyTorch's default)
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _ssd_inputs(b, s, h, p, n, g, seed=2):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    Bm = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,p,n,g,chunk", [
+    (64, 2, 16, 16, 1, 16),     # the shapes of tests/test_kernels.py
+    (128, 4, 32, 32, 2, 32),
+    (64, 2, 64, 128, 1, 32),
+    (32, 8, 16, 16, 1, 8),      # the mamba2 smoke mixer (chunk 8)
+    (512, 2, 64, 128, 1, 256),  # mamba2-370m's head and chunk: 4 x 4 tiles per chunk
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_ssd_matches_plain_version(s, h, p, n, g, chunk, dtype):
+    _cuda()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, dt, A, Bm, Cm = _ssd_inputs(2, s, h, p, n, g)
+    x, dt, Bm, Cm = (torch.from_numpy(a).to("cuda", tdt) for a in (x, dt, Bm, Cm))
+    A = torch.from_numpy(A).cuda()
+    before = _launches()
+    y = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd"] == before["ssd"] + 1
+    assert y.dtype == tdt and y.shape == x.shape
+    tol = 5e-2 if dtype == "bf16" else 1e-4
+    torch.testing.assert_close(y.float(), ref.ssd_ref(x, dt, A, Bm, Cm).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_smoke_forward_through_the_kernel():
+    """Every mixer of the mamba2 smoke model through ops.ssd_model_impl
+    against the model's own chunked path, on the card."""
+    _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply_head, forward_ssm, init_params, param_descs
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.ssm import mamba2_mixer
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("mamba2-370m", smoke=True)
+    params = init_params(param_descs(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))).cuda()
+    with torch.no_grad():
+        want = forward_ssm(cfg, params, tokens)
+        before = _launches()
+        x = params["embed"][tokens]
+        for i in range(cfg.num_layers):
+            lp = tree_map(lambda w: w[i], params["layers"])
+            out, _ = mamba2_mixer(lp["mixer"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                  ssd_impl=ops.ssd_model_impl)
+            x = x + out
+        got = apply_head(cfg, params, x)
+    assert ops.LAUNCHES["ssd"] == before["ssd"] + cfg.num_layers
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(128, 64), (256, 128), (64, 32), (96, 32), (192, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_matches_plain_version(s, d, causal, dtype):
+    """The sweep of tests/test_kernels.py, plus a sequence that is not a
+    multiple of the kernel's 64-row tile and gemma-2b's head dim 256."""
+    _cuda()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(np.float32)).to("cuda", tdt)
+               for _ in range(3))
+    before = _launches()
+    o = flash_attention_core(q, k, v, causal=causal, block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    torch.testing.assert_close(o.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (4, 2), (8, 1)])
+def test_cuda_flash_gqa_reads_kv_heads_in_place(nq, nkv):
+    _cuda()
+    b, s, hd = 2, 128, 64
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((b, s, nq, hd)).astype(np.float32)).cuda()
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, nkv, hd)).astype(np.float32)).cuda()
+            for _ in range(2))
+    before = _launches()
+    o = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, block_q=64, block_k=64)
+    torch.testing.assert_close(o.cpu(), want, atol=2e-5, rtol=2e-5)

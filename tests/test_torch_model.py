@@ -1,4 +1,4 @@
-"""The port's dense model, AdamW and train step against the JAX package.
+"""The port's dense and ssm models, AdamW and train step against the JAX package.
 
 Both sides start from the same weights: the JAX package initialises them
 and ``params_from_jax`` loads the arrays into the port (torch cannot
@@ -25,6 +25,7 @@ from repro.optim import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.optim import adamw_init as jax_adamw_init  # noqa: E402
 from repro.optim import adamw_update as jax_adamw_update  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
+from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.tree import tree_flatten  # noqa: E402
@@ -123,3 +124,44 @@ def test_train_steps_match(jax_params, steps):
     # apart. Such elements are rare, so the mean difference stays tiny.
     assert diffs.max() <= 2 * LR * steps
     assert diffs.mean() <= 1e-6
+
+
+# --------------------------------------------------------------------------- #
+# the ssm family (mamba2-370m)                                                 #
+# --------------------------------------------------------------------------- #
+SSM_CFG = get_config("mamba2_370m", smoke=True)
+SSM_PORT_CFG = port_get_config("mamba2-370m", smoke=True)
+
+
+def test_ssm_param_descs_match_jax_tree():
+    for smoke in (True, False):
+        cfg = get_config("mamba2_370m", smoke=smoke)
+        jd = jax_param_descs(cfg)
+        td = tm.param_descs(port_get_config("mamba2_370m", smoke=smoke))
+        j_leaves, j_def = jax.tree_util.tree_flatten(jd, is_leaf=lambda x: hasattr(x, "axes"))
+        t_leaves = tree_flatten(td)[0]
+        assert [(d.shape, d.axes, d.init) for d in j_leaves] == \
+            [(d.shape, d.axes, d.init) for d in t_leaves]
+        assert tm.param_count(td) == sum(int(np.prod(d.shape)) for d in j_leaves)
+    # the full configuration as published: 48 layers, d_model 1024, vocab
+    # 50280 padded to 51200, untied head
+    assert tm.param_count(td) == 421_709_312
+
+
+def test_forward_ssm_logits_match_jax():
+    jp = jax_init_params(jax_param_descs(SSM_CFG), jax.random.key(0), dtype=jnp.float32)
+    rng = np.random.default_rng(2)
+    tok = rng.integers(0, SSM_CFG.vocab_size, (2, 16)).astype(np.int32)
+    logits_j, _, _ = jax_forward(SSM_CFG, jp, tok)
+    cfg = SSM_PORT_CFG
+    params = _port(jp)
+    logits_t = tm.forward_ssm(cfg, params, torch.from_numpy(tok))
+    assert logits_t.shape == (2, 16, cfg.vocab_padded)
+    # 4 layers of f32 sums in another order: logits of magnitude ~4 agree to
+    # ~2e-5, so 1e-4 as for the dense model
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), atol=1e-4, rtol=0)
+    # the family dispatch reaches the same function
+    torch.testing.assert_close(tm.forward(cfg, params, torch.from_numpy(tok)), logits_t,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not dense"):
+        tm.forward_dense(cfg, params, torch.from_numpy(tok))

@@ -15,7 +15,8 @@ REF = ROOT / "src" / "repro"
 #: modules the port copies unchanged apart from the package name in imports
 COPIED = sorted(
     [p.relative_to(REF).as_posix() for d in ("core", "durable", "store") for p in (REF / d).glob("*.py")]
-    + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py"]
+    + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py",
+       "configs/mamba2_370m.py"]
 )
 
 
@@ -38,7 +39,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 19
+    assert len(COPIED) == 20
     assert all((PORT / rel).exists() for rel in COPIED)
 
 
@@ -75,3 +76,33 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         TrainerStateObject(tmp_path, lambda: ({}, {}), lambda *a: None)
     assert not (tmp_path / "coordinator.jsonl").exists()
+
+
+def test_new_kernel_entry_points_raise_off_cuda_and_cpu():
+    """The SSD and flash-attention wrappers launch their kernel for CUDA
+    tensors and take the plain version only when every input lies on the
+    CPU; any other device raises rather than falling back."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.kernels import ops
+
+    meta = {"device": "meta"}
+    x, dt, A = torch.zeros(1, 16, 2, 16, **meta), torch.zeros(1, 16, 2, **meta), torch.zeros(2, **meta)
+    bc = torch.zeros(1, 16, 1, 16, **meta)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="ssd has no kernel for device meta"):
+        ops.ssd(x, dt, A, bc, bc, chunk=8)
+    with pytest.raises(ValueError, match="ssd has no kernel for device meta"):
+        ops.ssd_model_impl(x, dt, A, bc, bc, chunk=8)
+    with pytest.raises(ValueError, match="A is on cpu, expected meta"):
+        ops.ssd(x, dt, torch.zeros(2), bc, bc, chunk=8)
+    q = torch.zeros(1, 64, 2, 32, **meta)
+    kv = torch.zeros(1, 64, 1, 32, **meta)
+    with pytest.raises(ValueError, match="flash_attention has no kernel for device meta"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="k is on cpu, expected meta"):
+        ops.flash_attention(q, torch.zeros(kv.shape), kv)
+    assert ops.LAUNCHES == before
+    # tensors on the CPU take the plain versions and launch nothing
+    ops.ssd(*(torch.zeros(t.shape) for t in (x, dt, A, bc, bc)), chunk=8)
+    ops.flash_attention(*(torch.zeros(t.shape) for t in (q, kv, kv)))
+    assert ops.LAUNCHES == before
