@@ -8,7 +8,9 @@ Phases, each printing its own line and raising on failure:
   env      torch / CUDA versions and the card's name and power limit
   build    compile the three CUDA sources of src/repro_torch/kernels/csrc
            (delta codec, SSD, flash attention) with nvcc for sm_90a, one nvcc
-           per source, all started together (into build/kernels/)
+           per source, all started together (into build/kernels/); print each
+           kernel's registers and spill bytes from ptxas, and its count of
+           tensor-core (HMMA) instructions in the SASS
   kernels  each delta-codec kernel against its plain PyTorch version on the
            card, at the 1-layer gemma-2b stream size (619,526 rows of 1024),
            f32 and bf16 inputs: bit-for-bit equality, median time, GB/s,
@@ -22,11 +24,11 @@ Phases, each printing its own line and raising on failure:
            same layers with every mixer on ssd_impl=ops.ssd_model_impl; the
            SSD kernel is launched exactly 48 times and the logits agree
   flash    ops.flash_attention at gemma-2b's attention shape (q (4, 2048, 8,
-           256), k/v (4, 2048, 1, 256)), causal and non-causal, f32 and bf16,
-           against flash_attention_ref over the repeated kv heads (2e-5 /
-           2e-2); median time beside the plain version and
-           torch.nn.functional.scaled_dot_product_attention (the yardstick
-           only: the port never calls it) and the backend SDPA took
+           256), k/v (4, 2048, 1, 256)), causal and non-causal, f32 (FP32 FMA)
+           and bf16 (tensor cores), against flash_attention_ref over the
+           repeated kv heads (2e-5 / 2e-2); median time beside the plain
+           version and torch.nn.functional.scaled_dot_product_attention (the
+           yardstick only: the port never calls it) and the backend SDPA took
   trainer  gemma-2b at full width with depth cut to 1 layer: data, trainer and
            metrics StateObjects on a LocalCluster; the version-0 base persist,
            two train steps, one forced delta persist (CUDA encode), a trainer
@@ -37,7 +39,8 @@ Phases, each printing its own line and raising on failure:
            completes, and the losses follow a CPU run of the same loop
 
 Then it prints the card's name and power limit, a JSON line with each
-kernel's numbers, and last {"ok": true, "device": {...}}. Without a CUDA
+kernel's numbers (at f32 inputs, and flash attention at bf16 too; each entry
+names its dtype), and last {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it fails and prints no
 result.
 """
@@ -53,6 +56,7 @@ import gc  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -122,6 +126,57 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) ->
     if not bool(torch.isfinite(got).all()) or bool((diff > tol + tol * want.abs()).any()):
         raise AssertionError(f"{name}: kernel != plain version (max abs err {err}, tol {tol})")
     return err
+
+
+def _demangle(names: list) -> dict:
+    """Mangled -> readable C++ names through c++filt, where the toolkit's
+    machine has it (the names stay mangled otherwise)."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != len(names):
+        return {n: n for n in names}
+    return {n: d.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for n, d in zip(names, lines)}
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill-store bytes, spill-load bytes) for each entry
+    function in an ``nvcc -Xptxas=-v`` log (kernels/build.py writes it beside
+    the library)."""
+    rows, fn, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            fn, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and fn is not None:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    names = _demangle([r[0] for r in rows])
+    return [(names[r[0]], *r[1:]) for r in rows]
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """Instructions whose opcode starts with ``opcode`` in each kernel of the
+    library's SASS (cuobjdump from the CUDA toolkit; empty without it)."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", ln):
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\*/\s+" + opcode + r"\b", ln):
+            counts[fn] += 1
+    names = _demangle(list(counts))
+    return {names[k]: c for k, c in counts.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -322,8 +377,12 @@ def phase_flash(cfg) -> tuple:
         q, k, v = inputs[tag]
         tol, peak = (2e-5, F32_OPS_PER_S) if tag == "f32" else (2e-2, BF16_OPS_PER_S)
         name = f"flash {tag} {'causal' if causal else 'non-causal'}"
-        err = check_close(name, outs[(tag, causal)],
-                          ref.flash_attention_gqa_ref(q, k, v, causal=causal), tol)
+        want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+        err = check_close(name, outs[(tag, causal)], want, tol)
+        # the largest |got - want| as a share of its allowance tol + tol |want|
+        share = float(((outs[(tag, causal)].float() - want.float()).abs()
+                       / (tol + tol * want.float().abs())).max())
+        del want
         ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10)
         plain_ms = median_ms(lambda: ref.flash_attention_gqa_ref(q, k, v, causal=causal), 5)
         backend = SDPBackend(torch._fused_sdp_choice(
@@ -346,7 +405,7 @@ def phase_flash(cfg) -> tuple:
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound_ms(nbytes, nops, peak)
         say("flash", f"{tag} {'causal' if causal else 'non-causal'}: within {tol} of "
-            f"flash_attention_ref (max abs err {err:.3e}); median {ms:.4f} ms "
+            f"flash_attention_ref (max abs err {err:.3e}, {share:.1%} of the allowance); median {ms:.4f} ms "
             f"({nops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the {b_by} bound "
             f"{b_ms:.4f} ms); plain version {plain_ms:.4f} ms; SDPA ({backend}) "
             f"{lib_ms:.4f} ms{note}; kernel / SDPA {ms / lib_ms:.1f}x")
@@ -579,10 +638,12 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = (k_delta.SOURCE, k_ssd.SOURCE, k_flash.SOURCE)
     for src, (path, secs) in zip(sources, build.build_all(sources)):
-        regs = [ln.split(":", 1)[1].strip() for ln in path.with_suffix(".log").read_text()
-                .splitlines() if "Used" in ln] if secs else []
         say("build", f"{src.name}: {path.relative_to(HERE)} "
-            + (f"compiled in {secs:.1f} s; ptxas: {'; '.join(regs)}" if secs else "already built"))
+            + (f"compiled in {secs:.1f} s" if secs else "already built"))
+        hmma = sass_counts(path, "HMMA")
+        for fn, regs, stores, loads in ptxas_report(path.with_suffix(".log").read_text()):
+            say("build", f"  ptxas {fn}: {regs} registers, {stores} B spill stores, {loads} B "
+                f"spill loads" + (f"; {hmma[fn]} HMMA in its SASS" if fn in hmma else ""))
     say("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: all built in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -603,10 +664,11 @@ def main() -> int:
 
     phase_loop(get_config("gemma_2b", smoke=True))
 
-    # the line reports each kernel at f32 inputs (flash: causal)
-    measured = {name: kern[(name, "f32")] for name in ("delta_encode", "delta_decode")}
-    measured["ssd"] = ssd_res["f32"]
-    measured["flash_attention"] = flash_res[("f32", True)]
+    # the line reports each kernel at f32 inputs, and flash attention (causal)
+    # also at bf16, its tensor-core path
+    measured = [(name, "f32", kern[(name, "f32")]) for name in ("delta_encode", "delta_decode")]
+    measured.append(("ssd", "f32", ssd_res["f32"]))
+    measured += [("flash_attention", tag, flash_res[(tag, True)]) for tag in ("f32", "bf16")]
     source = {"delta_encode": k_delta.SOURCE, "delta_decode": k_delta.SOURCE,
               "ssd": k_ssd.SOURCE, "flash_attention": k_flash.SOURCE}
     replaces = {"delta_encode": "src/repro/kernels/delta_encode.py:24",
@@ -614,11 +676,12 @@ def main() -> int:
                 "ssd": "src/repro/kernels/ssd.py:24",
                 "flash_attention": "src/repro/kernels/flash_attention.py:26"}
     line = {"kernels": [
-        dict(name=name, route="cuda", source=source[name].relative_to(HERE).as_posix(),
-             replaces=replaces[name], launches=launches[name], max_abs_err=m["max_abs_err"],
-             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-             bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        for name, m in measured.items()
+        dict(name=name, dtype=tag, route="cuda",
+             source=source[name].relative_to(HERE).as_posix(), replaces=replaces[name],
+             launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
+             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+             library_ms=m.get("library_ms"))
+        for name, tag, m in measured
     ]}
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

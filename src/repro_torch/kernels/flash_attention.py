@@ -2,11 +2,15 @@
 
 Port of ``repro/kernels/flash_attention.py`` (``_flash_kernel`` :26 and the
 core wrapper ``flash_attention`` :79) and of the GQA wrapper
-``repro/kernels/ops.py:26``. The kernel lives in ``csrc/flash_attention.cu``
-(one CTA per 64 query rows of one head, online softmax over kv tiles in
-shared memory); see that file for what bounds it on the H100 and how the
-design follows. ``block_q``/``block_k`` keep the reference's shape contract;
-the kernel chooses its own tiles for the card. GQA reads kv head
+``repro/kernels/ops.py:26``. The kernel lives in ``csrc/flash_attention.cu``.
+It is compute-bound on the H100 in both types. bf16 inputs run on the tensor
+cores (``mma.sync`` m16n8k16 with f32 accumulators, 128 query rows per CTA,
+S and O in registers, K/V through a cp.async ring); the probabilities P are
+rounded to bf16 before P V, the one arithmetic difference from the
+reference's f32 P (within its 2e-2 bound). f32 inputs run register-tiled
+FP32 FMA (no TF32: the 2e-5 bound rules it out). See that file for the
+bounds and the design. ``block_q``/``block_k`` keep the reference's shape
+contract; the kernel chooses its own tiles for the card. GQA reads kv head
 ``h // (Nq/Nkv)`` in place rather than repeating kv to ``Nq`` heads.
 
 Inputs that all lie on the CPU go to the plain versions
@@ -63,7 +67,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if k.shape != (b, t, nkv, d) or v.shape != k.shape or nq % nkv:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          "do not form a GQA attention")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel's 16-byte cp.async copies need 16-byte aligned rows
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+               for x in (q.contiguous(), k.contiguous(), v.contiguous()))
     o = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -124,6 +124,26 @@ def test_cuda_mamba2_smoke_forward_through_the_kernel():
     assert rel <= 1e-4, rel
 
 
+def _flash_case(b, s, t, d, causal, dtype, seed):
+    """The kernel through the core wrapper on one (b, s, d) x (b, t, d)
+    problem, held against flash_attention_ref at tests/test_kernels.py:39's
+    bounds."""
+    _cuda()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to("cuda", tdt)
+    k, v = (torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to("cuda", tdt)
+            for _ in range(2))
+    before = _launches()
+    o = flash_attention_core(q, k, v, causal=causal, block_q=s, block_k=t)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert o.dtype == tdt and o.shape == q.shape
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    torch.testing.assert_close(o.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,d", [(128, 64), (256, 128), (64, 32), (96, 32), (192, 256)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -131,18 +151,7 @@ def test_cuda_mamba2_smoke_forward_through_the_kernel():
 def test_cuda_flash_matches_plain_version(s, d, causal, dtype):
     """The sweep of tests/test_kernels.py, plus a sequence that is not a
     multiple of the kernel's 64-row tile and gemma-2b's head dim 256."""
-    _cuda()
-    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
-    rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(np.float32)).to("cuda", tdt)
-               for _ in range(3))
-    before = _launches()
-    o = flash_attention_core(q, k, v, causal=causal, block_q=32, block_k=32)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    tol = 2e-2 if dtype == "bf16" else 2e-5
-    torch.testing.assert_close(o.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
-                               atol=tol, rtol=tol)
+    _flash_case(2, s, s, d, causal, dtype, seed=0)
 
 
 @pytest.mark.cuda
@@ -160,3 +169,61 @@ def test_cuda_flash_gqa_reads_kv_heads_in_place(nq, nkv):
     assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, block_q=64, block_k=64)
     torch.testing.assert_close(o.cpu(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,d", [
+    (200, 200, 64), (130, 130, 256), (72, 72, 128), (130, 130, 32),  # ragged S = T
+    (96, 160, 64), (192, 64, 128), (64, 200, 256), (130, 72, 32),    # S != T
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_ragged_and_unequal_lengths(s, t, d, causal, dtype):
+    """S and T not multiples of the kernel's 64- and 128-row query tiles or
+    of its 32- and 64-row kv tiles, at every head dim; with S != T, causal
+    masks cols <= rows in absolute positions, as the reference does."""
+    _flash_case(2, s, t, d, causal, dtype, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_unaligned_storage(dtype):
+    """Contiguous inputs whose storage starts off a 16-byte boundary (the
+    kernel's cp.async copies need aligned rows) are copied, not refused."""
+    _cuda()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(2 * 64 * 32 + 1).astype(np.float32))
+               .to("cuda", tdt)[1:].view(2, 64, 32) for _ in range(3))
+    assert q.data_ptr() % 16 != 0
+    o = flash_attention_core(q, k, v, causal=True, block_q=64, block_k=64)
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    torch.testing.assert_close(o.float(), ref.flash_attention_ref(q, k, v, causal=True).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_long_bf16_causal_row():
+    """One (batch, head) at gemma-2b's sequence and head dim: 32 kv tiles of
+    online softmax with P rounded to bf16."""
+    _flash_case(1, 2048, 2048, 256, True, "bf16", seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_gqa_8_to_1_bf16_d256(causal):
+    """gemma-2b's head layout (8 q heads on 1 kv head, head dim 256) in bf16."""
+    _cuda()
+    b, s, hd = 2, 256, 256
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((b, s, 8, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, 1, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to("cuda", torch.bfloat16) for t in (q, k, v))
+    before = _launches()
+    o = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ref.flash_attention_gqa_ref(q, k, v, causal=causal).float(),
+                               atol=2e-2, rtol=2e-2)

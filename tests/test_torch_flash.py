@@ -90,3 +90,60 @@ def test_shape_contract_errors():
         ops.flash_attention(q4, k4, v4, block_q=64, block_k=64)
     short = ops.flash_attention(q4[:, :48], k4[:, :48], v4[:, :48], block_q=128, block_k=128)
     assert short.shape == (1, 48, 2, 32)
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal: bool, block_k: int = 64) -> torch.Tensor:
+    """A plain emulation of the CUDA kernel's bf16 arithmetic (csrc/
+    flash_attention.cu): q k^T of the bf16 inputs summed in f32, scaled by
+    scale * log2(e) once; -1e30 on masked causal positions; online softmax
+    over ``block_k``-wide kv tiles with exp2 in f32; the denominator summed
+    from the f32 P; P rounded to bf16 before P V; out = acc / max(l, 1e-30)
+    rounded to bf16. q (BH, S, D), k/v (BH, T, D) bf16."""
+    bh, s, d = q.shape
+    t = k.shape[1]
+    sl2 = torch.tensor(1.0 / np.sqrt(d) * np.log2(np.e), dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    rows = torch.arange(s)[:, None]
+    for j0 in range(0, t, block_k):
+        sc = torch.einsum("bqd,bkd->bqk", qf, kf[:, j0:j0 + block_k]) * sl2
+        if causal:
+            cols = torch.arange(j0, min(j0 + block_k, t))[None, :]
+            sc = torch.where(cols <= rows, sc, torch.full_like(sc, -1e30))
+        mn = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp2(sc - mn)
+        c = torch.exp2(m - mn)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + torch.einsum("bqk,bkd->bqd", p.to(torch.bfloat16).float(),
+                                     vf[:, j0:j0 + block_k])
+        m = mn
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_rounding_matches_jax_kernel(causal):
+    """The card's one numeric choice, P rounded to bf16 before P V, stays
+    within the 2e-2 bound of the reference's Pallas kernel (interpret mode)
+    at bf16, S 256, D 256, blocks 64."""
+    q, k, v = _qkv((2, 256, 256), (2, 256, 256), seed=8)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, True) for a in (q, k, v))
+    got = _emulate_bf16_kernel(qt, kt, vt, causal=causal)
+    want = jax_fa_core(qj, kj, vj, causal=causal, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_bf16_kernel_rounding_matches_float64_softmax_long_row():
+    """The same emulation through 32 kv tiles (S 2048, D 256, causal) against
+    a float64 softmax of the same bf16 inputs, within 2e-2."""
+    q, k, v = _qkv((1, 2048, 256), (1, 2048, 256), seed=9)
+    qt, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _emulate_bf16_kernel(qt, kt, vt, causal=True)
+    q64, k64, v64 = (t.double() for t in (qt, kt, vt))
+    sc = torch.einsum("bqd,bkd->bqk", q64, k64) / np.sqrt(256)
+    mask = torch.arange(2048)[None, :] <= torch.arange(2048)[:, None]
+    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+    want = torch.einsum("bqk,bkd->bqd", torch.softmax(sc, -1), v64)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), atol=2e-2, rtol=2e-2)
