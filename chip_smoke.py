@@ -9,20 +9,28 @@ Phases, each printing its own line and raising on failure:
   build    compile the three CUDA sources of src/repro_torch/kernels/csrc
            (delta codec, SSD, flash attention) with nvcc for sm_90a, one nvcc
            per source, all started together (into build/kernels/); print each
-           kernel's registers and spill bytes from ptxas, and its count of
-           tensor-core (HMMA) instructions in the SASS
+           kernel function's registers and spill bytes from ptxas (the SSD
+           source has five: chunk state and chunk scan in f32 and bf16, and
+           the state passing), and its count of tensor-core (HMMA)
+           instructions in the SASS
   kernels  each delta-codec kernel against its plain PyTorch version on the
            card, at the 1-layer gemma-2b stream size (619,526 rows of 1024),
            f32 and bf16 inputs: bit-for-bit equality, median time, GB/s,
            share of the bound
-  ssd      the SSD kernel against the sequential recurrence ssd_ref at the
+  ssd      the SSD kernels against the sequential recurrence ssd_ref at the
            full-width mixer shape of mamba2-370m (x (4, 2048, 32, 64), B/C
            (4, 2048, 1, 128), chunk 256), f32 and bf16: error within 1e-4 /
-           5e-2, median time, share of the bound, plain time
+           5e-2, two calls bit-identical, median time, share of the bound,
+           the device time of each of the call's three kernels
+           (torch.profiler), the plain time, and the time of the model's own
+           chunked composition models.ssm.ssd_chunked on the same inputs
   ssm      mamba2-370m at full width (48 layers, batch 4 x 2048, f32, seeded
            random weights): forward_ssm (the model's chunked path), then the
            same layers with every mixer on ssd_impl=ops.ssd_model_impl; the
-           SSD kernel is launched exactly 48 times and the logits agree
+           SSD kernels are called exactly 48 times and the logits agree;
+           the median of 3 warmed forwards of each route, and the device
+           time of each route's kernels by name from torch.profiler (the SSD
+           kernels' own time per forward among them)
   flash    ops.flash_attention at gemma-2b's attention shape (q (4, 2048, 8,
            256), k/v (4, 2048, 1, 256)), causal and non-causal, f32 (FP32 FMA)
            and bf16 (tensor cores), against flash_attention_ref over the
@@ -39,8 +47,8 @@ Phases, each printing its own line and raising on failure:
            completes, and the losses follow a CPU run of the same loop
 
 Then it prints the card's name and power limit, a JSON line with each
-kernel's numbers (at f32 inputs, and flash attention at bf16 too; each entry
-names its dtype), and last {"ok": true, "device": {...}}. Without a CUDA
+kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
+each entry names its dtype), and last {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it fails and prints no
 result.
 """
@@ -179,6 +187,36 @@ def sass_counts(lib: Path, opcode: str) -> dict:
     return {names[k]: c for k, c in counts.items()}
 
 
+def device_ms_by_kernel(fn) -> dict:
+    """Device time (ms) of each CUDA kernel that one run of ``fn`` launches,
+    by name, from torch.profiler's trace of the card (synchronised)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # host-side operators carry their kernels' time too
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            out[name] = out.get(name, 0.0) + us / 1e3
+    if not out:
+        raise AssertionError("torch.profiler recorded no device time on the card")
+    return out
+
+
+def _ssd_kernel_ms(by_kernel: dict) -> dict:
+    return {k.split("(")[0]: v for k, v in by_kernel.items()
+            if "ssd_chunk_" in k or "ssd_state_passing" in k}
+
+
 # --------------------------------------------------------------------------- #
 def phase_kernels(nb: int) -> dict:
     from repro_torch.kernels import ops, ref
@@ -248,6 +286,7 @@ def _ssd_inputs(gen, h: int, p: int, n: int, dt_type):
 
 def phase_ssd(cfg) -> dict:
     from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import ssd_chunked
 
     s_cfg = cfg.ssm
     h, p, n, L = s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state, s_cfg.chunk_size
@@ -260,8 +299,12 @@ def phase_ssd(cfg) -> dict:
         y = ops.ssd(x, dt, A, Bm, Cm, chunk=L)
         torch.cuda.synchronize()
         err = check_close(f"ssd {tag}", y, ref.ssd_ref(x, dt, A, Bm, Cm, L), tol)
+        if not torch.equal(y, ops.ssd(x, dt, A, Bm, Cm, chunk=L)):
+            raise AssertionError(f"ssd {tag}: two calls on the same inputs differ")
         ms = median_ms(lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=L), 10)
+        split = _ssd_kernel_ms(device_ms_by_kernel(lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=L)))
         plain_ms = median_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm, L), 3)
+        chunked_ms = median_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk=L), 10)
         # products and sums the chunked algorithm needs: the intra-chunk
         # pairs j <= i (C.B over N, then the gate times x over P), C.state
         # and the state update (2 L N P each), per (batch, head, chunk)
@@ -270,12 +313,15 @@ def phase_ssd(cfg) -> dict:
         esz = x.element_size()
         nbytes = esz * (2 * x.numel() + Bm.numel() + Cm.numel() + dt.numel()) + 4 * A.numel()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
-        say("ssd", f"{tag}: within {tol} of ssd_ref (max abs err {err:.3e}); median {ms:.4f} ms "
-            f"({nops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the {b_by} bound {b_ms:.4f} ms); "
-            f"plain version {plain_ms:.1f} ms; no library call: no single PyTorch call "
-            f"computes the SSD recurrence")
+        say("ssd", f"{tag}: within {tol} of ssd_ref (max abs err {err:.3e}), two calls "
+            f"bit-identical; median {ms:.4f} ms ({nops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} "
+            f"of the {b_by} bound {b_ms:.4f} ms); device time by kernel "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+            + f"; plain version {plain_ms:.1f} ms; models.ssm.ssd_chunked {chunked_ms:.4f} ms "
+            f"(kernel / chunked {ms / chunked_ms:.3f}x); no library call: no single PyTorch "
+            f"call computes the SSD recurrence")
         results[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            max_abs_err=err)
+                            max_abs_err=err, chunked_ms=chunked_ms, split=split)
         del x, dt, A, Bm, Cm, y
     gc.collect()
     torch.cuda.empty_cache()
@@ -305,21 +351,30 @@ def phase_ssm(cfg) -> int:
             x = x + out
         return apply_head(cfg, params, x)
 
+    def timed(fn) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     with torch.no_grad():
         forward_ssm(cfg, params, tokens)  # warm up both routes (cuBLAS, allocator)
         kernel_route()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = forward_ssm(cfg, params, tokens)
-        torch.cuda.synchronize()
-        t_chunked = time.perf_counter() - t0
-
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = kernel_route()
-        torch.cuda.synchronize()
-        t_kernel = time.perf_counter() - t0
-        launches = ops.LAUNCHES["ssd"]
+        t_chunked, t_kernel = [], []
+        for _ in range(3):  # in turns
+            want, t = timed(lambda: forward_ssm(cfg, params, tokens))
+            t_chunked.append(t)
+            ops.reset_launch_counts()
+            got, t = timed(kernel_route)
+            t_kernel.append(t)
+            launches = ops.LAUNCHES["ssd"]
+            if launches != cfg.num_layers:
+                break
+        t_chunked, t_kernel = float(np.median(t_chunked)), float(np.median(t_kernel))
+        by_chunked = device_ms_by_kernel(lambda: forward_ssm(cfg, params, tokens))
+        by_kernel = device_ms_by_kernel(kernel_route)
+    ssd_ms = _ssd_kernel_ms(by_kernel)
     shape = (SSM_BATCH, SSM_SEQ, cfg.vocab_padded)
     if tuple(got.shape) != shape or tuple(want.shape) != shape:
         raise AssertionError(f"logits {tuple(got.shape)} / {tuple(want.shape)}, expected {shape}")
@@ -333,9 +388,19 @@ def phase_ssm(cfg) -> int:
         raise AssertionError(f"kernel-route logits differ from forward_ssm by {rel:.3e} "
                              f"of max |logit| (tolerance {SSM_TOL})")
     say("ssm", f"{cfg.name} x{cfg.num_layers} layers, {param_count(param_descs(cfg)):,} "
-        f"parameters, batch {SSM_BATCH} x {SSM_SEQ}: forward_ssm {t_chunked:.3f} s; kernel "
-        f"route {t_kernel:.3f} s with {launches} SSD launches; logits {shape}, max |diff| "
-        f"{rel:.3e} of max |logit| {float(want.abs().max()):.4f} (tolerance {SSM_TOL})")
+        f"parameters, batch {SSM_BATCH} x {SSM_SEQ}, median of 3 warmed forwards: forward_ssm "
+        f"{t_chunked:.4f} s; kernel route {t_kernel:.4f} s with {launches} SSD calls (kernel / "
+        f"forward_ssm {t_kernel / t_chunked:.3f}x); logits {shape}, max |diff| {rel:.3e} of max "
+        f"|logit| {float(want.abs().max()):.4f} (tolerance {SSM_TOL})")
+    for route, by in (("forward_ssm", by_chunked), ("kernel route", by_kernel)):
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+        say("ssm", f"{route}: device time {sum(by.values()):.2f} ms per forward; largest: "
+            + "; ".join(f"{k[:70]} {v:.2f} ms" for k, v in top))
+    say("ssm", f"SSD kernels' own device time per forward (torch.profiler): "
+        f"{sum(ssd_ms.values()):.2f} ms over {launches} calls ("
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ssd_ms.items()) + ")")
+    if not ssd_ms:
+        raise AssertionError("the profiler saw no SSD kernel on the kernel route")
     del params, want, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -664,10 +729,10 @@ def main() -> int:
 
     phase_loop(get_config("gemma_2b", smoke=True))
 
-    # the line reports each kernel at f32 inputs, and flash attention (causal)
-    # also at bf16, its tensor-core path
+    # the line reports each kernel at f32 inputs, and SSD and flash attention
+    # (causal) also at bf16, their tensor-core paths
     measured = [(name, "f32", kern[(name, "f32")]) for name in ("delta_encode", "delta_decode")]
-    measured.append(("ssd", "f32", ssd_res["f32"]))
+    measured += [("ssd", tag, ssd_res[tag]) for tag in ("f32", "bf16")]
     measured += [("flash_attention", tag, flash_res[(tag, True)]) for tag in ("f32", "bf16")]
     source = {"delta_encode": k_delta.SOURCE, "delta_decode": k_delta.SOURCE,
               "ssd": k_ssd.SOURCE, "flash_attention": k_flash.SOURCE}

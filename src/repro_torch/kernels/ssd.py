@@ -1,17 +1,19 @@
-"""Mamba-2 chunked SSD: the hand-written CUDA kernel and its wrapper.
+"""Mamba-2 chunked SSD: the hand-written CUDA kernels and their wrapper.
 
 Port of ``repro/kernels/ssd.py`` (``_ssd_kernel`` :24 and ``ssd`` :77). The
-kernel lives in ``csrc/ssd.cu`` (one CTA per (batch, head) walking the chunks
-in order, the f32 state in shared memory); see that file for what bounds it
-on the H100 and how the design follows. Unlike the reference's wrapper it
-reads the G groups of B and C in place rather than repeating them to H heads,
-and it keeps the (B, S, H, P) layout rather than transposing to head-major.
+kernels live in ``csrc/ssd.cu``: one call runs the chunk states, the state
+passing over the chunks and the chunk scan as three kernels, the chunks in
+parallel (FP32 FMA for f32 inputs, the tensor cores for bf16); see that file
+for what bounds them on the H100 and how the design follows. Unlike the
+reference's wrapper it reads the G groups of B and C in place rather than
+repeating them to H heads, and it keeps the (B, S, H, P) layout rather than
+transposing to head-major.
 
 A tensor on the CPU goes to the plain version ``ref.ssd_ref``; a CUDA tensor
-launches the kernel or raises. The kernel takes a chunk of at most 64 or a
-multiple of 64, and as much shared memory as fits a block (227 KB; 147 KB
-at P 64, N 128, chunk 256); its launcher refuses other shapes, and the
-wrapper raises.
+launches the kernels or raises. The kernels take a chunk of at most 64 or a
+multiple of 64, P and N multiples of 8 and N up to 128; the wrapper raises on
+other shapes. It allocates the f32 workspace of chunk states (B H (S/L) N P,
+33.5 MB at mamba2-370m's shape) with ``torch.empty`` on the input's device.
 """
 from __future__ import annotations
 
@@ -28,7 +30,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def _library() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    return build.load(SOURCE, {"ssd_forward": ([p] * 6 + [i32] * 8 + [p], i32)})
+    return build.load(SOURCE, {"ssd_forward": ([p] * 8 + [i32] * 8 + [p], i32),
+                               "ssd_smem_limits": ([p], i32)})
+
+
+#: the kernel functions of one call, in the order ``smem_limits`` reports them
+KERNELS = ("ssd_chunk_state_f32", "ssd_chunk_state_bf16", "ssd_state_passing",
+           "ssd_chunk_scan_f32", "ssd_chunk_scan_bf16")
+#: the largest N the kernels take
+MAX_STATE = 128
+
+
+def smem_limits() -> dict:
+    """The dynamic shared memory each kernel function may use (bytes), after
+    the library has set its 227 KB opt-in, as every call does."""
+    out = (ctypes.c_int * len(KERNELS))()
+    build.raise_on(_library().ssd_smem_limits(out), "ssd_smem_limits")
+    return dict(zip(KERNELS, out))
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk: int) -> None:
@@ -65,15 +83,24 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                         f"{Bm.dtype}, {Cm.dtype}")
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
-    dt32 = dt.to(torch.float32).contiguous()   # exact: the kernel computes in f32
-    A32 = A.to(torch.float32).contiguous()
+    if (chunk > 64 and chunk % 64) or p % 8 or n % 8 or n > MAX_STATE:
+        raise ValueError(f"the SSD kernels take a chunk of at most 64 or a multiple of 64, P and "
+                         f"N multiples of 8 and N <= {MAX_STATE}; got chunk {chunk}, P {p}, N {n}")
+    # exact for dt and A: the kernels compute in f32. The 16-byte cp.async
+    # copies need 16-byte aligned storage
+    x, Bm, Cm, dt32, A32 = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        x.contiguous(), Bm.contiguous(), Cm.contiguous(),
+        dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous()))
     y = torch.empty_like(x)
+    nc = s // chunk
+    states = torch.empty(b * h * nc * n * p, dtype=torch.float32, device=dev)
+    decay = torch.empty(b * h * nc, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().ssd_forward(
             x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), b, s, h, p, g, n, chunk, _DTYPE_CODE[x.dtype], stream,
+            y.data_ptr(), states.data_ptr(), decay.data_ptr(), b, s, h, p, g, n, chunk,
+            _DTYPE_CODE[x.dtype], stream,
         )
     build.raise_on(err, "ssd")
     LAUNCHES["ssd"] += 1

@@ -58,10 +58,13 @@ def _cuda():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-def _ssd_inputs(b, s, h, p, n, g, seed=2):
+def _ssd_inputs(b, s, h, p, n, g, seed=2, strong=False):
+    """The recipe of tests/test_kernels.py:72-81; ``strong``: dt about 1.4,
+    so that the decay sums of a 256 chunk reach a few hundred."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, h, p)).astype(np.float32)
-    dt = (np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.1).astype(np.float32)
+    z = rng.standard_normal((b, s, h))
+    dt = (np.log1p(np.exp(z + 1.0)) if strong else np.log1p(np.exp(z)) * 0.1).astype(np.float32)
     A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
     Bm = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
     Cm = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
@@ -91,6 +94,73 @@ def test_cuda_ssd_matches_plain_version(s, h, p, n, g, chunk, dtype):
     tol = 5e-2 if dtype == "bf16" else 1e-4
     torch.testing.assert_close(y.float(), ref.ssd_ref(x, dt, A, Bm, Cm).float(),
                                atol=tol, rtol=tol)
+
+
+def _ssd_case(b, s, h, p, n, g, chunk, dtype, strong=False):
+    _cuda()
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, dt, A, Bm, Cm = _ssd_inputs(b, s, h, p, n, g, strong=strong)
+    x, dt, Bm, Cm = (torch.from_numpy(a).to("cuda", tdt) for a in (x, dt, Bm, Cm))
+    A = torch.from_numpy(A).cuda()
+    before = _launches()
+    y = ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd"] == before["ssd"] + 1
+    assert y.dtype == tdt and y.shape == x.shape
+    tol = 5e-2 if dtype == "bf16" else 1e-4
+    torch.testing.assert_close(y.float(), ref.ssd_ref(x, dt, A, Bm, Cm).float(),
+                               atol=tol, rtol=tol)
+    return (x, dt, A, Bm, Cm), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk,strong", [
+    (1, 768, 4, 64, 128, 2, 256, True),    # mamba2-370m's head, 3 chunks, 2 groups, cum ~ -500
+    (1, 1024, 2, 64, 128, 1, 256, False),  # batch x heads 2, far below the 132 SMs
+    (2, 192, 2, 32, 64, 1, 64, False),     # 3 chunks of one 64-row tile
+    (1, 256, 2, 128, 128, 1, 128, False),  # two column tiles of P
+    (2, 96, 3, 24, 40, 1, 32, False),      # P and N not multiples of 16
+], ids=["mamba2-head-strong-decay", "few-ctas", "nc3-chunk64", "p128", "ragged-p-n"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_ssd_redesign_shapes(b, s, h, p, n, g, chunk, strong, dtype):
+    """The shapes the chunk-parallel kernels tile differently: several
+    chunks whose states pass between kernels, few (batch, head) pairs,
+    zero-padded tiles of P and N, two column tiles of P."""
+    _ssd_case(b, s, h, p, n, g, chunk, dtype, strong=strong)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_ssd_two_calls_bit_identical(dtype):
+    """No atomics: every output is summed in a fixed order."""
+    args, y = _ssd_case(2, 768, 4, 64, 128, 1, 256, dtype)
+    for _ in range(2):
+        assert torch.equal(ops.ssd(*args, chunk=256), y)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_smem_opt_in_per_kernel_function():
+    """Each of the five kernel functions has the 227 KB dynamic
+    shared-memory opt-in set."""
+    _cuda()
+    from repro_torch.kernels import ssd as k_ssd
+
+    limits = k_ssd.smem_limits()
+    assert sorted(limits) == sorted(k_ssd.KERNELS)
+    assert all(v == 227 * 1024 for v in limits.values()), limits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,chunk", [(64, 256, 64), (20, 16, 16), (16, 16, 96)])
+def test_cuda_ssd_refuses_shapes_it_cannot_tile(p, n, chunk):
+    """N above 128, P or N not a multiple of 8, a chunk above 64 that is
+    not a multiple of 64: the wrapper raises, with no fallback."""
+    _cuda()
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).cuda() for a in _ssd_inputs(1, 192, 2, p, n, 1))
+    before = _launches()
+    with pytest.raises(ValueError, match="SSD kernels take"):
+        ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ops.LAUNCHES["ssd"] == before["ssd"]
 
 
 @pytest.mark.cuda
