@@ -45,6 +45,17 @@ Phases, each printing its own line and raising on failure:
            trainer and data kills end with the failure-free digest, external
            metrics list every step once, a delta-codec run with a kill
            completes, and the losses follow a CPU run of the same loop
+  serve    the speculative serving path (models decode_step, train/serve.py)
+           at gemma-2b's full width and 18 layers and mamba2-370m's 48, f32,
+           seeded random weights, batch 1: teacher-forced decode_step
+           against one forward over 64 / 256 tokens (1e-4 / 1e-3 of max
+           |logit|; gemma-2b's check in float64, see SERVE_TOL); the median decode ms per token against the batch-1 HBM
+           bound (weight bytes over 3.35 TB/s); device time, launches and
+           idle share of 8 warmed steps (torch.profiler); a 16-token serving
+           run failure-free and with kill_at=8 give the same durable tokens,
+           with the seconds Restore took to replay; at the two smoke configs
+           the tokens served on the card equal a CPU run's from the same
+           weights. The serving path launches none of the kernels above
 
 Then it prints the card's name and power limit, a JSON line with each
 kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
@@ -187,29 +198,46 @@ def sass_counts(lib: Path, opcode: str) -> dict:
     return {names[k]: c for k, c in counts.items()}
 
 
-def device_ms_by_kernel(fn) -> dict:
-    """Device time (ms) of each CUDA kernel that one run of ``fn`` launches,
-    by name, from torch.profiler's trace of the card (synchronised)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn) -> list:
+    """torch.profiler's per-operator averages of one synchronised run of
+    ``fn`` on the card (host operators and device kernels)."""
+    from torch.profiler import ProfilerActivity, profile as _profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def by_name(events, device: bool) -> dict:
+    """(self time in ms, count) by name: of the CUDA kernels (``device``),
+    or of the host operators."""
+    from torch.autograd import DeviceType
+
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side operators carry their kernels' time too
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
+    for ev in events:
+        if (ev.device_type == DeviceType.CUDA) != device:
+            continue
+        if device:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+        else:
+            us = ev.self_cpu_time_total
         if us > 0:
             name = ev.key.replace("(anonymous namespace)::", "")
-            out[name] = out.get(name, 0.0) + us / 1e3
-    if not out:
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + us / 1e3, n + ev.count)
+    if device and not out:
         raise AssertionError("torch.profiler recorded no device time on the card")
     return out
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device time (ms) of each CUDA kernel that one run of ``fn`` launches,
+    by name, from torch.profiler's trace of the card."""
+    return {k: ms for k, (ms, _) in by_name(profile(fn), device=True).items()}
 
 
 def _ssd_kernel_ms(by_kernel: dict) -> dict:
@@ -676,6 +704,217 @@ def phase_loop(cfg) -> None:
 
 
 # --------------------------------------------------------------------------- #
+#: teacher-forced decode positions held against one forward: a multiple of
+#: the SSD chunk for the ssm family (ssd_chunked refuses other lengths)
+SERVE_T = {"dense": 64, "ssm": 256}
+#: decode logits against the forward's, relative to max |logit|. gemma-2b's
+#: random weights make its attention a hard argmax (the init takes the
+#: fan-in of wq (D, N, H) as N, so the attention logits have a std near
+#: 700), and 18 layers amplify f32 rounding to O(1): on an H100 its f32
+#: forward differs from a float64 forward by 0.83 of max |logit| (PERF.md,
+#: examples/torch_decode_drift.py).
+#: So the dense check runs in float64, where the same amplification leaves
+#: the two about 4e-7 apart. mamba2-370m runs in f32; its forward runs the
+#: f32 chunked SSD, whose drift through 48 layers sets SSM_TOL.
+SERVE_TOL = {"dense": 1e-4, "ssm": SSM_TOL}
+SERVE_CHECK_DTYPE = {"dense": torch.float64, "ssm": torch.float32}
+
+
+def _timed_restores(serve) -> tuple:
+    """Wrap DecodeSessionStateObject.Restore to record (tokens replayed,
+    seconds to the end of the replay on the card); returns the record list
+    and leaves the wrapper installed until the caller restores it."""
+    record, restore = [], serve.DecodeSessionStateObject.Restore
+
+    def timed(self, version):
+        t0 = time.perf_counter()
+        meta = restore(self, version)
+        torch.cuda.synchronize()
+        record.append((len(self.tokens), time.perf_counter() - t0))
+        return meta
+
+    serve.DecodeSessionStateObject.Restore = timed
+    return record, restore
+
+
+def _serve_full(cfg, card: str) -> None:
+    """Teacher-forced decode against forward, decode timing and idle share,
+    then a failure-free serving run against one with a kill, at full width."""
+    from repro_torch.models import (cache_descs, decode_step, forward, init_params,
+                                    param_count, param_descs, zeros_from_descs)
+    from repro_torch.train import run_speculative_serving, serve
+    from repro_torch.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+    n_params = param_count(param_descs(cfg))
+    T, tol = SERVE_T[cfg.family], SERVE_TOL[cfg.family]
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device="cuda")
+
+    def fresh_cache(max_len, dtype=torch.float32):
+        return zeros_from_descs(cache_descs(cfg, 1, max_len), dtype, "cuda")
+
+    def teacher_forced(p, dtype):
+        """decode_step over the T tokens: the logits (1, T, V) and the ms of
+        each step, which ends in the host's argmax as a serving step does."""
+        cache, out, step_ms = fresh_cache(T, dtype), [], []
+        for i in range(T):
+            t0 = time.perf_counter()
+            logits, cache = decode_step(cfg, p, cache, tokens[:, i: i + 1], i)
+            int(torch.argmax(logits[0, 0, : cfg.vocab_size]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+        return torch.cat(out, dim=1), step_ms
+
+    def rel_diff(got, want) -> float:
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode logits {tuple(got.shape)}, forward {tuple(want.shape)}")
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    check = SERVE_CHECK_DTYPE[cfg.family]
+    with torch.no_grad():
+        got, step_ms = teacher_forced(params, torch.float32)
+        want = forward(cfg, params, tokens)
+        rel32 = rel_diff(got, want)
+        note = ""
+        if check != torch.float32:
+            p64 = tree_map(lambda t: t.to(check), params)
+            got64, _ = teacher_forced(p64, check)
+            want64 = forward(cfg, p64, tokens)
+            rel = rel_diff(got64, want64)
+            note = (f" in {str(check).removeprefix('torch.')} (in f32 the two differ by {rel32:.3e}, "
+                    f"and the f32 forward from a float64 one by {rel_diff(want, want64):.3e}: "
+                    f"rounding amplified by the random model, not held)")
+            del p64, got64, want64
+        else:
+            rel = rel32
+        if rel > tol:
+            raise AssertionError(f"{cfg.name}: teacher-forced decode differs from forward by "
+                                 f"{rel:.3e} of max |logit| (tolerance {tol})")
+        del got, want
+        cache = fresh_cache(64)
+
+        def eight_steps():
+            for i in range(8):
+                lg, _ = decode_step(cfg, params, cache, tokens[:, i: i + 1], i)
+                int(torch.argmax(lg[0, 0, : cfg.vocab_size]))
+
+        events = profile(eight_steps)
+    kernels, host = by_name(events, device=True), by_name(events, device=False)
+    ms = float(np.median(step_ms[8:]))  # the first steps warm up cuBLAS and the allocator
+    dev_ms = sum(m for m, _ in kernels.values()) / 8
+    launches = sum(n for _, n in kernels.values()) / 8
+    b_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    say("serve", f"{cfg.name} x{cfg.num_layers} layers, {n_params:,} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB f32), batch 1: teacher-forced decode_step over {T} tokens "
+        f"== one forward within {rel:.3e} of max |logit| (tolerance {tol}){note}; {card}")
+    say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{T - 1} "
+        f"({1e3 / ms:.1f} tokens/s); batch-1 HBM bound {b_ms:.3f} ms (weight bytes over 3.35 "
+        f"TB/s), {b_ms / ms:.1%} of it; 8 warmed steps under torch.profiler: device time "
+        f"{dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
+        f"{1 - dev_ms / ms:.1%} of the median step; {card}")
+    for what, table in (("device time per step by kernel", kernels),
+                        ("host self time per step by operator (profiled)", host)):
+        top = sorted(table.items(), key=lambda kv: -kv[1][0])[:6]
+        say("serve", f"{cfg.name} decode {what}: "
+            + "; ".join(f"{k[:60]} {m / 8:.3f} ms x{n / 8:.0f}" for k, (m, n) in top))
+
+    root = RUN_DIR / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    record, restore = _timed_restores(serve)
+    try:
+        t0 = time.perf_counter()
+        base = run_speculative_serving(root / "base", cfg, params, n_tokens=16)
+        t_base = time.perf_counter() - t0
+        killed = run_speculative_serving(root / "kill", cfg, params, n_tokens=16, kill_at=8)
+        # the same replay over all 16 durable tokens, timed directly
+        so = serve.DecodeSessionStateObject(root / "replay", cfg, params, max_len=64)
+        so.tokens = list(base.durable_tokens)
+        t0 = time.perf_counter()
+        so._rebuild_cache()
+        torch.cuda.synchronize()
+        t_16 = time.perf_counter() - t0
+        del so
+    finally:
+        serve.DecodeSessionStateObject.Restore = restore
+        shutil.rmtree(root, ignore_errors=True)
+    if len(base.durable_tokens) != 16 or base.tokens_generated != 16:
+        raise AssertionError(f"{cfg.name}: failure-free run {base}")
+    if (killed.durable_tokens != base.durable_tokens or killed.rollbacks != 1
+            or killed.tokens_generated != 16):
+        raise AssertionError(f"{cfg.name}: kill run {killed} != failure-free {base}")
+    n_rep, t_rep = max(record) if record else (0, 0.0)
+    say("serve", f"{cfg.name} run_speculative_serving(n_tokens=16): {t_base:.3f} s "
+        f"({16 / t_base:.1f} tokens/s end to end); kill_at=8: rollbacks 1, the same 16 durable "
+        f"tokens {base.durable_tokens}; its Restore replayed {n_rep} tokens in {t_rep:.4f} s; "
+        f"a replay of all 16 takes {t_16:.4f} s; {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _margins(cfg, params, tokens: list) -> list:
+    """Top-2 logit margin of each greedy step that produced ``tokens``."""
+    from repro_torch.models import cache_descs, decode_step, zeros_from_descs
+
+    cache = zeros_from_descs(cache_descs(cfg, 1, 64), torch.float32, "cuda")
+    out = []
+    with torch.no_grad():
+        for i, t in enumerate([0] + tokens[:-1]):
+            tok = torch.tensor([[t]], device="cuda")
+            lg, cache = decode_step(cfg, params, cache, tok, i)
+            top2 = torch.topk(lg[0, 0, : cfg.vocab_size], 2).values
+            out.append(f"{float(top2[0] - top2[1]):.2e}")
+    return out
+
+
+def phase_serve(card: str) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, param_descs
+    from repro_torch.train import run_speculative_serving
+    from repro_torch.tree import tree_map
+
+    one = torch.zeros(1, device="cuda")
+    one.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        one.add_(1)
+    torch.cuda.synchronize()
+    say("serve", f"host cost of one launch of a one-element add_: "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} us (mean of 1000); {card}")
+    ops.reset_launch_counts()
+    for name in ("gemma_2b", "mamba2_370m"):
+        _serve_full(get_config(name), card)
+    root = RUN_DIR / "serve_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        for name in ("gemma_2b", "mamba2_370m"):
+            cfg = get_config(name, smoke=True)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+            card_run = run_speculative_serving(root / f"{name}_card", cfg, params, n_tokens=16)
+            cpu_run = run_speculative_serving(root / f"{name}_cpu", cfg,
+                                              tree_map(lambda t: t.cpu(), params),
+                                              n_tokens=16, device="cpu")
+            if card_run.durable_tokens != cpu_run.durable_tokens or len(cpu_run.durable_tokens) != 16:
+                raise AssertionError(f"{cfg.name}: served on the card {card_run.durable_tokens}, "
+                                     f"on the CPU {cpu_run.durable_tokens}; the card's top-2 "
+                                     f"logit margins {_margins(cfg, params, card_run.durable_tokens)}")
+            say("serve", f"{cfg.name}: the 16 tokens served on the card equal a CPU run's "
+                f"from the same weights {card_run.durable_tokens}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"the serving path launched a kernel: {ops.LAUNCHES}")
+    say("serve", f"kernel launches on the serving path: {dict(ops.LAUNCHES)} (its reference "
+        f"reaches no Pallas kernel)")
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -728,6 +967,7 @@ def main() -> int:
     launches.update(ssd=ssd_launches, flash_attention=flash_launches)
 
     phase_loop(get_config("gemma_2b", smoke=True))
+    phase_serve(card)
 
     # the line reports each kernel at f32 inputs, and SSD and flash attention
     # (causal) also at bf16, their tensor-core paths

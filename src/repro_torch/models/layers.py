@@ -1,14 +1,17 @@
-"""Transformer building blocks, training branch (port of ``repro/models/layers.py``).
+"""Transformer building blocks (port of ``repro/models/layers.py``).
 
 Activations are ``x (B, S, D)``; attention weights keep the reference's
 layout (``wq (D, N, H)``, ``wo (N, H, D)``) so parameters load unchanged from
 the JAX package. Attention is plain torch math, as the reference's ``_sdpa``
-is plain einsum: no cache, no cross-attention source, no window, softcap 0.
-The decode branch (caches, ring buffers) comes with the serving slice.
+is plain einsum, with GQA by repeating the kv heads (the reference's default
+path). Decode caches are ``(B, Smax, Nkv, H)`` linear or ring buffers. Not
+ported yet: the cross-attention source, the logit softcap, and the grouped
+"flash-decode" einsum that the reference's ``Tuning.decode_seq_constraint``
+selects (the port has no tuning flags yet; ROADMAP.md section 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +23,14 @@ from .params import PDesc
 F32 = torch.float32
 
 
+def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    """The reference normalises and takes the softmax in f32; a float64
+    model keeps float64 there."""
+    return torch.promote_types(dtype, F32)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(_at_least_f32(x.dtype))
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w.to(x.dtype))
 
@@ -53,16 +62,52 @@ def attn_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
 def _sdpa(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q/k/v (B, S|T, N, H) with kv already repeated to N heads."""
     scale = 1.0 / np.sqrt(q.shape[-1])
-    logits = torch.einsum("bsnh,btnh->bnst", q, k).float() * scale
+    logits = torch.einsum("bsnh,btnh->bnst", q, k).to(_at_least_f32(q.dtype)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnst,btnh->bsnh", probs, v)
 
 
-def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
-    """Self-attention over positions (B, S); GQA by repeating kv heads."""
+def _cache_mask(smax: int, cache_index: int, idx: int, window: Optional[int],
+                ring: bool, device) -> torch.Tensor:
+    """Valid cache slots (1, 1, 1, Smax) at decode position ``cache_index``."""
+    slot = torch.arange(smax, dtype=torch.int32, device=device)
+    if ring:
+        # slot holds absolute position cache_index - ((idx - slot) mod smax)
+        abs_pos = cache_index - torch.remainder(idx - slot, smax)
+        valid = (abs_pos >= 0) & (abs_pos <= cache_index)
+        if window is not None:
+            valid &= abs_pos > cache_index - window
+    else:
+        valid = slot <= cache_index
+        if window is not None:
+            valid &= slot > cache_index - window
+    return valid[None, None, None, :]
+
+
+def attention(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, S, D)
+    cfg: ModelConfig,
+    positions: torch.Tensor,             # (B, S) absolute positions of x
+    *,
+    window: Optional[int] = None,        # sliding-window size (local attention)
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"k","v"} (B,Smax,Nkv,H)
+    cache_index: Optional[int] = None,   # write offset, a host int
+    ring: bool = False,                  # the cache is a ring buffer
+    cross_src: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Self-attention over ``positions``; returns ``(out, new_cache)``.
+
+    With a cache, this step's k/v are written into ``cache`` in place at
+    ``cache_index`` (modulo Smax for a ring) and the same dict is returned:
+    the cache passed in is consumed, where the reference returns a new one
+    from ``dynamic_update_slice``. An index the write does not fit raises,
+    where ``dynamic_update_slice`` would clamp it."""
+    if cross_src is not None:
+        raise NotImplementedError("cross-attention (encdec, vlm) is not ported yet")
     if cfg.logit_softcap:
         raise NotImplementedError("logit_softcap is not ported yet")
     B, S, D = x.shape
@@ -75,15 +120,31 @@ def attention(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     q = rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
     k = rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
 
-    mask = None
-    if causal:
-        mask = positions[:, None, None, :] <= positions[:, None, :, None]  # (B,1,S,T)
+    if cache is not None:
+        smax = cache["k"].shape[1]
+        idx = cache_index % smax if ring else cache_index
+        if not 0 <= idx <= smax - S:
+            raise ValueError(f"cache index {cache_index} does not fit {S} token(s) in a "
+                             f"cache of {smax}")
+        cache["k"][:, idx: idx + S] = k
+        cache["v"][:, idx: idx + S] = v
+        k, v = cache["k"], cache["v"]
+        mask = _cache_mask(smax, cache_index, idx, window, ring, x.device)
+    else:
+        mask = None
+        qpos = positions[:, None, :, None]              # (B,1,S,1)
+        kpos = positions[:, None, None, :]              # (B,1,1,T)
+        if causal:
+            mask = kpos <= qpos
+        if window is not None:
+            near = kpos > qpos - window
+            mask = near if mask is None else mask & near
     if groups > 1:  # jnp.repeat(k, groups, axis=2); backward is a plain sum
         T, nkv, hd = k.shape[1:]
         k = k[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nkv * groups, hd)
         v = v[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nkv * groups, hd)
     out = _sdpa(q, k, v, mask)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
 
 
 def mlp_descs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, PDesc]:

@@ -31,6 +31,10 @@ class PDesc:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+def is_desc(x) -> bool:
+    return isinstance(x, PDesc)
+
+
 def stack(desc: PDesc, n: int, axis_name: Optional[str] = "layers") -> PDesc:
     """Prepend a stacked-layer dimension."""
     return PDesc((n,) + desc.shape, (axis_name,) + desc.axes, desc.init, desc.scale)
@@ -59,6 +63,13 @@ def init_params(descs, generator: torch.Generator, dtype=torch.float32, device=N
     dev = resolve_device(device)
     leaves, td = tree_flatten(descs)
     return tree_unflatten(td, [_init_leaf(d, generator, dtype, dev) for d in leaves])
+
+
+def zeros_from_descs(descs, dtype=torch.float32, device=None):
+    """A tree of zero tensors shaped as ``descs`` (the decode caches: the
+    reference maps ``jnp.zeros`` over the tree with ``is_leaf=is_desc``)."""
+    dev = resolve_device(device)
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=dtype, device=dev), descs)
 
 
 def params_from_jax(tree, device=None, dtype: Optional[torch.dtype] = None):

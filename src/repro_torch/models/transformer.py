@@ -1,18 +1,24 @@
-"""Model assembly, train/prefill path (port of ``repro/models/transformer.py``).
+"""Model assembly, prefill and decode (port of ``repro/models/transformer.py``).
 
 Family map (as the reference's ``_FORWARD``):
   dense -> forward_dense  (gemma-2b: flat plan of attention + MLP blocks)
-  ssm   -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks, no cache)
+  ssm   -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks)
 
 Each family is token embedding, a stack of identical blocks whose weights
 are stacked along a leading layer axis, and a tied or separate LM head. The
 reference scans the stack with ``lax.scan``; here a Python loop indexes the
-stacked weights. MoE, MLA, the gemma3 local/global plan, the hybrid, encdec
-and vlm families and the decode caches come with later slices (ROADMAP.md).
+stacked weights. With a decode cache (``cache_descs``, ``decode_step``) the
+loop hands each block per-layer views of the stacked cache buffers, and the
+blocks write their new k/v or conv/SSM state through those views in place:
+the cache tree passed in is updated and returned, not copied, where the
+reference re-stacks a new tree every step. MoE, MLA, the gemma3 local/global
+plan, the hybrid, encdec and vlm families come with later slices
+(ROADMAP.md section 1, item 2).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import operator
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +59,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         return
     if cfg.family != "dense" or cfg.global_period or cfg.moe or cfg.mla:
         raise NotImplementedError(
-            f"{cfg.name}: only the flat dense plan and the ssm family are ported yet")
+            f"{cfg.name}: only the flat dense plan and the ssm family are ported yet "
+            "(ROADMAP.md section 1, item 2)")
 
 
 def dense_descs(cfg: ModelConfig) -> Dict:
@@ -90,53 +97,108 @@ def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
-def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 positions: torch.Tensor, *, kind: str) -> torch.Tensor:
+def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                 *, kind: str, cache: Optional[Dict] = None,
+                 cache_index: Optional[int] = None) -> torch.Tensor:
+    """One block; with a cache, its per-layer views are updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
-        out, _ = mamba2_mixer(lp["mixer"], h, cfg)
+        out, new = mamba2_mixer(lp["mixer"], h, cfg, cache=cache)
+        if cache is not None:
+            cache["conv"].copy_(new["conv"])
+            cache["state"].copy_(new["state"])
         return x + out
-    x = x + attention(lp["attn"], h, cfg, positions)
+    out, _ = attention(lp["attn"], h, cfg, positions, cache=cache, cache_index=cache_index)
+    x = x + out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(lp["mlp"], h2, cfg.activation)
 
 
-def _stack(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, kind: str) -> torch.Tensor:
+def _stack(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, kind: str,
+           cache: Optional[Dict], cache_index: Optional[int]):
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    if cache is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    else:
+        cache_index = operator.index(cache_index)
+        positions = torch.full((B, S), cache_index, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens)
     for i in range(cfg.num_layers):
         lp = tree_map(lambda w: w[i], params["layers"])
-        x = _block_apply(cfg, lp, x, positions, kind=kind)
-    return apply_head(cfg, params, x)
+        c = None if cache is None else tree_map(lambda t: t[i], cache["layers"])
+        x = _block_apply(cfg, lp, x, positions, kind=kind, cache=c, cache_index=cache_index)
+    logits = apply_head(cfg, params, x)
+    return logits if cache is None else (logits, cache)
 
 
-def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab_padded)."""
+def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+                  cache: Optional[Dict] = None, cache_index: Optional[int] = None):
+    """tokens (B, S) int -> logits (B, S, vocab_padded); with a cache,
+    single-token decode at ``cache_index`` -> (logits, the updated cache)."""
     _check_supported(cfg)
     if cfg.family != "dense":
         raise ValueError(f"{cfg.name} is of the {cfg.family} family, not dense")
-    return _stack(cfg, params, tokens, "attn")
+    return _stack(cfg, params, tokens, "attn", cache, cache_index)
 
 
-def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+                cache: Optional[Dict] = None, cache_index: Optional[int] = None):
     """tokens (B, S) int -> logits (B, S, vocab_padded), every mixer on the
-    model's own chunked SSD (the reference's forward passes no ssd_impl)."""
+    model's own chunked SSD (the reference's forward passes no ssd_impl);
+    with a cache, single-token decode -> (logits, the updated cache)."""
     _check_supported(cfg)
     if cfg.family != "ssm":
         raise ValueError(f"{cfg.name} is of the {cfg.family} family, not ssm")
-    return _stack(cfg, params, tokens, "ssm")
+    return _stack(cfg, params, tokens, "ssm", cache, cache_index)
 
 
 _FORWARD = {"dense": forward_dense, "ssm": forward_ssm}
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Dispatch by family, as the reference's ``forward``; returns logits
-    only (the reference also returns its decode cache and MoE aux loss,
-    which these families do not produce without a cache)."""
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+            cache: Optional[Dict] = None, cache_index: Optional[int] = None):
+    """Dispatch by family, as the reference's ``forward``. Without a cache it
+    returns logits only (the reference also returns its decode cache and MoE
+    aux loss, which these families do not produce without a cache); with a
+    cache, (logits, the updated cache)."""
     _check_supported(cfg)
-    return _FORWARD[cfg.family](cfg, params, tokens)
+    return _FORWARD[cfg.family](cfg, params, tokens, cache=cache, cache_index=cache_index)
+
+
+def _attn_cache_desc(cfg: ModelConfig, batch: int, length: int) -> Dict[str, PDesc]:
+    nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": PDesc((batch, length, nkv, hd), ("batch", "seq", "kv_heads", None), init="zeros"),
+        "v": PDesc((batch, length, nkv, hd), ("batch", "seq", "kv_heads", None), init="zeros"),
+    }
+
+
+def _ssm_cache_desc(cfg: ModelConfig, batch: int) -> Dict[str, PDesc]:
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    conv_ch = di + 2 * s.n_groups * s.d_state
+    return {
+        "conv": PDesc((batch, s.d_conv - 1, conv_ch), ("batch", None, "ffn"), init="zeros"),
+        "state": PDesc((batch, nh, s.head_dim, s.d_state), ("batch", "heads", None, None),
+                       init="zeros"),
+    }
+
+
+def cache_descs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """Decode-cache descriptor tree matching the family's layer stack."""
+    _check_supported(cfg)
+    if cfg.family == "ssm":
+        return {"layers": stack_tree(_ssm_cache_desc(cfg, batch), cfg.num_layers)}
+    return {"layers": stack_tree(_attn_cache_desc(cfg, batch, max_len), cfg.num_layers)}
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
+                cache_index: int) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, 1) at position ``cache_index`` (a host int) -> (logits
+    (B, 1, vocab_padded), the cache updated in place). The families not
+    ported yet (the encdec branch of the reference among them) raise."""
+    return forward(cfg, params, tokens, cache=cache, cache_index=cache_index)
 
 
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,

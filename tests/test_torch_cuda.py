@@ -297,3 +297,35 @@ def test_cuda_flash_gqa_8_to_1_bf16_d256(causal):
     assert o.dtype == torch.bfloat16 and o.shape == q.shape
     torch.testing.assert_close(o.float(), ref.flash_attention_gqa_ref(q, k, v, causal=causal).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_370m"])
+def test_cuda_serving_decode_and_replay(arch, tmp_path):
+    """The serving path on the card at the smoke configs: teacher-forced
+    decode_step equals one forward position by position (16 tokens, two of
+    the mamba2 smoke config's chunks of 8), and a serving run with a kill
+    gives the failure-free run's tokens. The path launches no kernel."""
+    _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import (cache_descs, decode_step, forward, init_params, param_descs,
+                                    zeros_from_descs)
+    from repro_torch.train import run_speculative_serving
+
+    cfg = get_config(arch, smoke=True)
+    params = init_params(param_descs(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 16))).cuda()
+    before = _launches()
+    with torch.no_grad():
+        cache = zeros_from_descs(cache_descs(cfg, 1, 16), device="cuda")
+        got = torch.cat([decode_step(cfg, params, cache, tokens[:, i: i + 1], i)[0]
+                         for i in range(16)], dim=1)
+        want = forward(cfg, params, tokens)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    base = run_speculative_serving(tmp_path / "base", cfg, params, n_tokens=10)
+    killed = run_speculative_serving(tmp_path / "kill", cfg, params, n_tokens=10, kill_at=5)
+    assert killed.rollbacks == 1 and killed.tokens_generated == 10
+    assert len(base.durable_tokens) == 10 and killed.durable_tokens == base.durable_tokens
+    assert _launches() == before

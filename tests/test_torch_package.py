@@ -68,13 +68,19 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
     from repro_torch.checkpoint import TrainerStateObject
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.train import run_resilient_training
+    from repro_torch.train import (DecodeSessionStateObject, run_resilient_training,
+                                   run_speculative_serving)
 
     assert resolve_device("cpu") == torch.device("cpu")
+    cfg = get_config("gemma_2b", smoke=True)
     with pytest.raises(RuntimeError, match="CUDA was requested"):
-        run_resilient_training(tmp_path, get_config("gemma_2b", smoke=True), steps=1)
+        run_resilient_training(tmp_path, cfg, steps=1)
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         TrainerStateObject(tmp_path, lambda: ({}, {}), lambda *a: None)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        run_speculative_serving(tmp_path, cfg, {}, n_tokens=1)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        DecodeSessionStateObject(tmp_path, cfg, {})
     assert not (tmp_path / "coordinator.jsonl").exists()
 
 
