@@ -44,22 +44,45 @@ Phases, each printing its own line and raising on failure:
   loop     run_resilient_training at the gemma_2b smoke config on the card:
            trainer and data kills end with the failure-free digest, external
            metrics list every step once, a delta-codec run with a kill
-           completes, and the losses follow a CPU run of the same loop
+           completes, and the losses follow a CPU run of the same loop. Then
+           the mamba2_370m smoke config (the ssm family): a trainer kill ends
+           with the failure-free digest; with the delta codec (whose restore
+           is lossy, so no digest is claimed) a failure-free run and a run
+           with a trainer kill complete, list every step once, launch the
+           codec kernels, and their losses agree
+  train_full  one make_train_step of mamba2-370m at full width (421,709,312
+           parameters) on 1 x 2048 tokens, f32, under remat "none" and
+           "full" from the same state, in turns: median step time and peak
+           memory of each; losses and new params of the two within 1e-6 of
+           max |param| (bit-identity printed); two calls under one policy
+           bit-identical
+  prefill  make_prefill_step at 1 x 2048 tokens, f32, on yi-6b, glm4-9b and
+           gemma3-4b at full width, one model at a time: median of 3 warmed
+           calls, achieved TFLOP/s against the f32 peak; the last-position
+           logits equal the full forward's last row within 1e-5 of max |logit|
   serve    the speculative serving path (models decode_step, train/serve.py)
-           at gemma-2b's full width and 18 layers and mamba2-370m's 48, f32,
-           seeded random weights, batch 1: teacher-forced decode_step
-           against one forward over 64 / 256 tokens (1e-4 / 1e-3 of max
-           |logit|; gemma-2b's check in float64, see SERVE_TOL); the median decode ms per token against the batch-1 HBM
+           at gemma-2b's full width and 18 layers, gemma3-4b's 34 and
+           mamba2-370m's 48, f32, seeded random weights, batch 1:
+           teacher-forced decode_step against one forward over 64 / 256
+           tokens (1e-4 / 1e-3 of max |logit|; the dense checks in float64,
+           see SERVE_TOL and SERVE_CHECK_GROUPS); the median decode ms per
+           token against the batch-1 HBM
            bound (weight bytes over 3.35 TB/s); device time, launches and
            idle share of 8 warmed steps (torch.profiler); a 16-token serving
            run failure-free and with kill_at=8 give the same durable tokens,
-           with the seconds Restore took to replay; at the two smoke configs
-           the tokens served on the card equal a CPU run's from the same
-           weights. The serving path launches none of the kernels above
+           with the seconds Restore took to replay; gemma-2b's decode timed
+           with Tuning.decode_seq_constraint off and on, in turns; at the
+           smoke configs of the five architectures the tokens served on the
+           card equal a CPU run's from the same weights (gemma3's 24 tokens
+           wrap its window-8 rings). The serving path launches none of the
+           kernels above
 
 Then it prints the card's name and power limit, a JSON line with each
 kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
-each entry names its dtype), and last {"ok": true, "device": {...}}. Without a CUDA
+each entry names its dtype; ``launches`` counts the run of the path the
+kernel was ported for (the codec: trainer; SSD: ssm; flash attention: flash)
+and ``path_launches`` every path's run, each read after its counts were set
+to 0), and last {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it fails and prints no
 result.
 """
@@ -103,6 +126,8 @@ FLASH_BATCH, FLASH_SEQ = 4, 2048
 #: hundred within a 256 chunk, and 48 layers amplify the rounding: the two
 #: differ by about 3e-4 on an H100 (PERF.md, examples/torch_ssd_drift.py)
 SSM_TOL = 1e-3
+#: tokens of the train_full and prefill phases (batch 1)
+TRAIN_SEQ = PREFILL_SEQ = 2048
 
 
 def say(phase: str, msg: str) -> None:
@@ -356,10 +381,10 @@ def phase_ssd(cfg) -> dict:
     return results
 
 
-def phase_ssm(cfg) -> int:
+def phase_ssm(cfg) -> dict:
     """Path (A): the forward of mamba2-370m at full width, once on the
     model's chunked SSD and once with every mixer on the SSD kernel. Returns
-    the kernel's launches on the kernel route."""
+    every kernel's launches on the kernel route."""
     from repro_torch.kernels import ops
     from repro_torch.models import apply_head, forward_ssm, init_params, param_count, param_descs
     from repro_torch.models.layers import rms_norm
@@ -396,8 +421,8 @@ def phase_ssm(cfg) -> int:
             ops.reset_launch_counts()
             got, t = timed(kernel_route)
             t_kernel.append(t)
-            launches = ops.LAUNCHES["ssd"]
-            if launches != cfg.num_layers:
+            launches = dict(ops.LAUNCHES)
+            if launches["ssd"] != cfg.num_layers:
                 break
         t_chunked, t_kernel = float(np.median(t_chunked)), float(np.median(t_kernel))
         by_chunked = device_ms_by_kernel(lambda: forward_ssm(cfg, params, tokens))
@@ -408,16 +433,16 @@ def phase_ssm(cfg) -> int:
         raise AssertionError(f"logits {tuple(got.shape)} / {tuple(want.shape)}, expected {shape}")
     if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
         raise AssertionError("non-finite logits")
-    if launches != cfg.num_layers:
-        raise AssertionError(f"the kernel route launched the SSD kernel {launches} times, "
-                             f"expected {cfg.num_layers}")
+    if launches != dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers}:
+        raise AssertionError(f"the kernel route launched {launches}, expected the SSD kernel "
+                             f"{cfg.num_layers} times and no other")
     rel = float((got - want).abs().max() / want.abs().max())
     if rel > SSM_TOL:
         raise AssertionError(f"kernel-route logits differ from forward_ssm by {rel:.3e} "
                              f"of max |logit| (tolerance {SSM_TOL})")
     say("ssm", f"{cfg.name} x{cfg.num_layers} layers, {param_count(param_descs(cfg)):,} "
         f"parameters, batch {SSM_BATCH} x {SSM_SEQ}, median of 3 warmed forwards: forward_ssm "
-        f"{t_chunked:.4f} s; kernel route {t_kernel:.4f} s with {launches} SSD calls (kernel / "
+        f"{t_chunked:.4f} s; kernel route {t_kernel:.4f} s with {launches['ssd']} SSD calls (kernel / "
         f"forward_ssm {t_kernel / t_chunked:.3f}x); logits {shape}, max |diff| {rel:.3e} of max "
         f"|logit| {float(want.abs().max()):.4f} (tolerance {SSM_TOL})")
     for route, by in (("forward_ssm", by_chunked), ("kernel route", by_kernel)):
@@ -425,7 +450,7 @@ def phase_ssm(cfg) -> int:
         say("ssm", f"{route}: device time {sum(by.values()):.2f} ms per forward; largest: "
             + "; ".join(f"{k[:70]} {v:.2f} ms" for k, v in top))
     say("ssm", f"SSD kernels' own device time per forward (torch.profiler): "
-        f"{sum(ssd_ms.values()):.2f} ms over {launches} calls ("
+        f"{sum(ssd_ms.values()):.2f} ms over {launches['ssd']} calls ("
         + ", ".join(f"{k} {v:.2f} ms" for k, v in ssd_ms.items()) + ")")
     if not ssd_ms:
         raise AssertionError("the profiler saw no SSD kernel on the kernel route")
@@ -445,7 +470,8 @@ def _sdpa(q, k, v, causal: bool):
 
 def phase_flash(cfg) -> tuple:
     """Path (B): ops.flash_attention at gemma-2b's attention geometry, causal
-    and non-causal, f32 and bf16. Returns (results, launches on the path)."""
+    and non-causal, f32 and bf16. Returns (results, every kernel's launches
+    on the path)."""
     from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels import ops, ref
@@ -462,9 +488,10 @@ def phase_flash(cfg) -> tuple:
     outs = {(tag, causal): ops.flash_attention(*inputs[tag], causal=causal)
             for _, tag, causal in cases}
     torch.cuda.synchronize()
-    launches = ops.LAUNCHES["flash_attention"]
-    if launches != len(cases):
-        raise AssertionError(f"flash path launched {launches} kernels, expected {len(cases)}")
+    launches = dict(ops.LAUNCHES)
+    if launches != dict.fromkeys(launches, 0) | {"flash_attention": len(cases)}:
+        raise AssertionError(f"flash path launched {launches}, expected flash attention "
+                             f"{len(cases)} times and no other")
     results = {}
     for dt_type, tag, causal in cases:
         q, k, v = inputs[tag]
@@ -559,7 +586,7 @@ def phase_trainer(cfg) -> None:
     root = RUN_DIR / "trainer"
     shutil.rmtree(root, ignore_errors=True)
     data = SyntheticLMData(cfg.vocab_size, 4, 16, seed=0)
-    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3), remat="none")
     codec = DeltaCheckpointCodec(base_every=4)
 
     def init_state():
@@ -703,6 +730,193 @@ def phase_loop(cfg) -> None:
         f"{rel.max():.2e}; {time.perf_counter() - t0:.1f} s")
 
 
+def phase_loop_ssm(cfg) -> dict:
+    """The resilient loop on the ssm family (mamba2 smoke): a trainer kill
+    ends with the failure-free digest; the delta codec's runs, failure-free
+    and with a trainer kill, complete through the codec kernels. Returns the
+    kernels' launches on the codec runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import run_resilient_training
+
+    steps = 8
+    root = RUN_DIR / "loop_ssm"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        base = run_resilient_training(root / "base", cfg, steps=steps)
+        killed = run_resilient_training(root / "kt", cfg, steps=steps, kill_trainer_at=4)
+        ops.reset_launch_counts()
+        codec = run_resilient_training(root / "cb", cfg, steps=steps, use_delta_codec=True)
+        codec_kill = run_resilient_training(root / "ck", cfg, steps=steps, kill_trainer_at=4,
+                                            use_delta_codec=True)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if killed.params_digest != base.params_digest or killed.rollbacks < 1:
+        raise AssertionError(f"{cfg.name} trainer kill: digest {killed.params_digest} != "
+                             f"failure-free {base.params_digest} (rollbacks {killed.rollbacks})")
+    for name, res in (("kill_trainer_at=4", killed), ("codec", codec),
+                      ("codec, kill_trainer_at=4", codec_kill)):
+        ext = sorted(s for s, _ in res.external_metrics)
+        if res.final_step != steps or ext != list(range(steps)):
+            raise AssertionError(f"{cfg.name} {name}: step {res.final_step}, external "
+                                 f"metrics steps {ext}")
+    if codec_kill.rollbacks < 1 or launches["delta_encode"] < 1:
+        raise AssertionError(f"{cfg.name} codec runs: rollbacks {codec_kill.rollbacks}, "
+                             f"launches {launches}")
+    losses = [np.array([dict(r.external_metrics)[s] for s in range(steps)])
+              for r in (base, codec, codec_kill)]
+    if not all(np.all(np.isfinite(l)) for l in losses):
+        raise AssertionError(f"{cfg.name} losses {losses}")
+    # The codec's deltas are int8: a restore lands within half a quantisation
+    # step of the persisted params, so the kill run's digest is not the
+    # failure-free one (the reference's loop behaves the same). Its losses
+    # stay within the loop's 5e-3 (tests/test_torch_training.py), and the
+    # failure-free codec run trains exactly as a run without the codec
+    rel = float(np.max(np.abs(losses[2] - losses[1]) / np.abs(losses[1])))
+    if rel > 5e-3 or not np.array_equal(losses[1], losses[0]):
+        raise AssertionError(f"{cfg.name} codec losses {losses[1]} / {losses[2]} vs "
+                             f"{losses[0]}")
+    say("loop", f"{cfg.name}: trainer-kill digest {killed.params_digest} == failure-free; "
+        f"delta codec failure-free and kill_trainer_at=4 runs complete, steps 0..{steps - 1} "
+        f"once each, kernel launches {launches}, digests {codec.params_digest} / "
+        f"{codec_kill.params_digest} (lossy restore: "
+        f"{'equal' if codec.params_digest == codec_kill.params_digest else 'differ'}), kill "
+        f"run losses within {rel:.2e} of the failure-free codec run's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+def phase_train_full(cfg, card: str) -> dict:
+    """One train step of mamba2-370m at full width under remat "none" and
+    "full", from the same state, in turns. Returns the kernels' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import init_params, param_count, param_descs
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_flatten
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    n_params = param_count(param_descs(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1), generator=gen,
+                                     device="cuda")}
+    policies = ("none", "full")
+    steps = {r: make_train_step(cfg, AdamWConfig(lr=1e-3), remat=r) for r in policies}
+    times = {r: [] for r in policies}
+    peak = {r: 0 for r in policies}
+    first, same = {}, {r: True for r in policies}
+    for r in policies:  # warm up cuBLAS and the allocator
+        steps[r](params, opt, batch)
+    for rep in range(3):
+        for r in (policies if rep % 2 == 0 else policies[::-1]):  # in turns
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            new_p, _, loss = steps[r](params, opt, batch)
+            torch.cuda.synchronize()
+            times[r].append(time.perf_counter() - t0)
+            peak[r] = max(peak[r], torch.cuda.max_memory_allocated() - held)
+            leaves = tree_flatten(new_p)[0]
+            if r not in first:
+                first[r] = (loss, leaves)
+            else:
+                same[r] &= torch.equal(loss, first[r][0]) and all(
+                    torch.equal(a, b) for a, b in zip(leaves, first[r][1]))
+            del new_p, leaves, loss
+    launches = dict(ops.LAUNCHES)
+    (loss_n, p_n), (loss_f, p_f) = first["none"], first["full"]
+    if not (bool(torch.isfinite(loss_n)) and all(bool(torch.isfinite(t).all()) for t in p_n)):
+        raise AssertionError(f"{cfg.name} train step: loss {float(loss_n)}")
+    scale = max(float(t.abs().max()) for t in p_n)
+    p_diff = max(float((a - b).abs().max()) for a, b in zip(p_n, p_f))
+    l_diff = abs(float(loss_n) - float(loss_f))
+    bit = torch.equal(loss_n, loss_f) and all(torch.equal(a, b) for a, b in zip(p_n, p_f))
+    if p_diff > 1e-6 * scale or l_diff > 1e-6 * abs(float(loss_n)):
+        raise AssertionError(f"{cfg.name}: remat full vs none: params differ by {p_diff:.3e} "
+                             f"(max |param| {scale:.3e}), losses by {l_diff:.3e}")
+    if not all(same.values()):
+        raise AssertionError(f"{cfg.name}: two train steps under one policy differ: {same}")
+    med = {r: float(np.median(times[r])) for r in policies}
+    say("train_full", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters, 1 x {TRAIN_SEQ} "
+        f"tokens, f32, loss {float(loss_n):.6f}: remat none median {med['none'] * 1e3:.1f} ms "
+        f"a step, peak {peak['none'] / 2**30:.2f} GiB above the state held; remat full "
+        f"{med['full'] * 1e3:.1f} ms ({med['full'] / med['none']:.3f}x), peak "
+        f"{peak['full'] / 2**30:.2f} GiB ({peak['full'] / peak['none']:.3f}x); full vs none: "
+        f"params within {p_diff:.3e} (max |param| {scale:.3f}), loss within {l_diff:.3e}, "
+        f"{'bit-identical' if bit else 'not bit-identical'}; two calls under each policy "
+        f"bit-identical; kernel launches {launches}; {card}")
+    del params, opt, first, p_n, p_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _prefill_flops(cfg, seq: int) -> int:
+    """Operations of one dense prefill at batch 1: the block products, every
+    (query, key) pair of attention (the plain path forms the masked ones
+    too), and the head on the last position."""
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    per_layer = (2 * seq * d * hd * (2 * nq + 2 * nkv) + 2 * seq * 3 * d * f
+                 + 2 * 2 * seq * seq * nq * hd)
+    return cfg.num_layers * per_layer + 2 * d * cfg.vocab_padded
+
+
+def phase_prefill(card: str) -> dict:
+    """make_prefill_step on the three dense models at full width, one at a
+    time. Returns the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import forward, init_params, param_count, param_descs
+
+    ops.reset_launch_counts()
+    for name in ("yi_6b", "glm4_9b", "gemma3_4b"):
+        cfg = get_config(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_params = param_count(param_descs(cfg))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ), generator=gen,
+                                         device="cuda")}
+        step = make_prefill_step(cfg)
+        ms = median_ms(lambda: step(params, batch), 3)
+        last = step(params, batch)
+        with torch.no_grad():
+            want = forward(cfg, params, batch["tokens"])[:, -1:]
+        if last.shape != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"{cfg.name} prefill logits {tuple(last.shape)}")
+        rel = float((last - want).abs().max() / want.abs().max())
+        if rel > 1e-5:
+            raise AssertionError(f"{cfg.name}: last_only logits differ from the full forward's "
+                                 f"last row by {rel:.3e} of max |logit|")
+        flops = _prefill_flops(cfg, PREFILL_SEQ)
+        tflops = flops / ms / 1e9
+        window = ""
+        if cfg.global_period:
+            n_local = cfg.num_layers - cfg.num_layers // cfg.global_period
+            window = f", window {cfg.sliding_window} on {n_local} of {cfg.num_layers} layers"
+        say("prefill", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters "
+            f"({n_params * 4 / 1e9:.2f} GB f32){window}, 1 x {PREFILL_SEQ} tokens: median "
+            f"{ms:.2f} ms of 3 warmed calls, {flops / 1e12:.3f} TFLOP, {tflops:.2f} TFLOP/s "
+            f"({tflops / (F32_OPS_PER_S / 1e12):.1%} of the 67 TFLOP/s f32 peak, TF32 off); "
+            f"last_only logits == the full forward's last row within {rel:.3e} of max |logit|; "
+            f"{card}")
+        del params, last, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ops.LAUNCHES)
+
+
 # --------------------------------------------------------------------------- #
 #: teacher-forced decode positions held against one forward: a multiple of
 #: the SSD chunk for the ssm family (ssd_chunked refuses other lengths)
@@ -718,6 +932,27 @@ SERVE_T = {"dense": 64, "ssm": 256}
 #: f32 chunked SSD, whose drift through 48 layers sets SSM_TOL.
 SERVE_TOL = {"dense": 1e-4, "ssm": SSM_TOL}
 SERVE_CHECK_DTYPE = {"dense": torch.float64, "ssm": torch.float32}
+#: gemma3-4b's random model (wq's fan-in taken as its 8 heads: layer-0
+#: attention logits of std 886) is chaotic even in float64 over 34 layers:
+#: on an H100 its float64 decode and forward part by 1.7e-13 of max |hidden|
+#: after layer 0, 4.0e-7 after 12 layers and 5.5e-2 after 34, growing layer
+#: by layer (examples/torch_decode_drift.py --arch gemma3-4b --layers 34).
+#: So the float64 check is held at the model's first two groups and its
+#: 4-layer tail (16 layers: every stack of the plan), full width, and the
+#: 34-layer gap is printed
+SERVE_CHECK_GROUPS = {"gemma3-4b": 2}
+
+
+def _cut_groups(cfg, params, groups: int):
+    """The config and params of a gemma3 plan cut to its first ``groups``
+    groups and its whole tail: views of the group stacks."""
+    from repro_torch.tree import tree_map
+
+    tail = cfg.num_layers % cfg.global_period
+    cut = dict(params)
+    for k in ("group_locals", "group_global"):
+        cut[k] = tree_map(lambda t: t[:groups], params[k])
+    return dataclasses.replace(cfg, num_layers=groups * cfg.global_period + tail), cut
 
 
 def _timed_restores(serve) -> tuple:
@@ -756,13 +991,14 @@ def _serve_full(cfg, card: str) -> None:
     def fresh_cache(max_len, dtype=torch.float32):
         return zeros_from_descs(cache_descs(cfg, 1, max_len), dtype, "cuda")
 
-    def teacher_forced(p, dtype):
+    def teacher_forced(p, dtype, c=cfg):
         """decode_step over the T tokens: the logits (1, T, V) and the ms of
         each step, which ends in the host's argmax as a serving step does."""
-        cache, out, step_ms = fresh_cache(T, dtype), [], []
+        cache = zeros_from_descs(cache_descs(c, 1, T), dtype, "cuda")
+        out, step_ms = [], []
         for i in range(T):
             t0 = time.perf_counter()
-            logits, cache = decode_step(cfg, p, cache, tokens[:, i: i + 1], i)
+            logits, cache = decode_step(c, p, cache, tokens[:, i: i + 1], i)
             int(torch.argmax(logits[0, 0, : cfg.vocab_size]))
             step_ms.append((time.perf_counter() - t0) * 1e3)
             out.append(logits)
@@ -787,6 +1023,15 @@ def _serve_full(cfg, card: str) -> None:
             note = (f" in {str(check).removeprefix('torch.')} (in f32 the two differ by {rel32:.3e}, "
                     f"and the f32 forward from a float64 one by {rel_diff(want, want64):.3e}: "
                     f"rounding amplified by the random model, not held)")
+            groups = SERVE_CHECK_GROUPS.get(cfg.name)
+            if groups:
+                c_cfg, c_p64 = _cut_groups(cfg, p64, groups)
+                rel_all, rel = rel, rel_diff(teacher_forced(c_p64, check, c_cfg)[0],
+                                             forward(c_cfg, c_p64, tokens))
+                note += (f"; held at its first {groups} groups and its tail ({c_cfg.num_layers} "
+                         f"layers), full width: at all {cfg.num_layers} the float64 decode and "
+                         f"forward differ by {rel_all:.3e}, rounding amplified through the "
+                         f"layers, not held")
             del p64, got64, want64
         else:
             rel = rel32
@@ -820,6 +1065,9 @@ def _serve_full(cfg, card: str) -> None:
         top = sorted(table.items(), key=lambda kv: -kv[1][0])[:6]
         say("serve", f"{cfg.name} decode {what}: "
             + "; ".join(f"{k[:60]} {m / 8:.3f} ms x{n / 8:.0f}" for k, (m, n) in top))
+
+    if cfg.name == "gemma-2b":
+        _seq_constraint_timing(cfg, params, tokens, card)
 
     root = RUN_DIR / "serve"
     shutil.rmtree(root, ignore_errors=True)
@@ -855,6 +1103,31 @@ def _serve_full(cfg, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _seq_constraint_timing(cfg, params, tokens, card: str) -> None:
+    """Decode ms per token with Tuning.decode_seq_constraint off and on (the
+    grouped einsum over the un-repeated cache), in turns: off, on, on, off.
+    Timed only: the random f32 gemma-2b amplifies the two einsums' rounding
+    (see SERVE_TOL)."""
+    from repro_torch.models import cache_descs, decode_step, tuning, zeros_from_descs
+
+    n = 32
+    step_ms = {False: [], True: []}
+    with torch.no_grad():
+        for flag in (False, True, True, False):
+            cache = zeros_from_descs(cache_descs(cfg, 1, n), torch.float32, "cuda")
+            with tuning(decode_seq_constraint=flag):
+                for i in range(n):
+                    t0 = time.perf_counter()
+                    logits, cache = decode_step(cfg, params, cache, tokens[:, i: i + 1], i)
+                    int(torch.argmax(logits[0, 0, : cfg.vocab_size]))
+                    if i >= 8:
+                        step_ms[flag].append((time.perf_counter() - t0) * 1e3)
+    off, on = (float(np.median(step_ms[f])) for f in (False, True))
+    say("serve", f"{cfg.name} decode, Tuning.decode_seq_constraint off / on, in turns (off, on, "
+        f"on, off; steps 8..{n - 1} of each pass): median {off:.3f} / {on:.3f} ms per token "
+        f"(on / off {on / off:.3f}x); {card}")
+
+
 def _margins(cfg, params, tokens: list) -> list:
     """Top-2 logit margin of each greedy step that produced ``tokens``."""
     from repro_torch.models import cache_descs, decode_step, zeros_from_descs
@@ -870,7 +1143,9 @@ def _margins(cfg, params, tokens: list) -> list:
     return out
 
 
-def phase_serve(card: str) -> None:
+def phase_serve(card: str) -> dict:
+    """The serving path at full width and at the smoke configs. Returns every
+    kernel's launches on it (all 0, checked)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, param_descs
@@ -887,24 +1162,26 @@ def phase_serve(card: str) -> None:
     say("serve", f"host cost of one launch of a one-element add_: "
         f"{(time.perf_counter() - t0) * 1e3:.2f} us (mean of 1000); {card}")
     ops.reset_launch_counts()
-    for name in ("gemma_2b", "mamba2_370m"):
+    for name in ("gemma_2b", "gemma3_4b", "mamba2_370m"):
         _serve_full(get_config(name), card)
     root = RUN_DIR / "serve_smoke"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        for name in ("gemma_2b", "mamba2_370m"):
+        for name in ("yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "mamba2_370m"):
             cfg = get_config(name, smoke=True)
+            # gemma3 smoke: 24 tokens wrap its window-8 ring caches twice
+            n = 24 if cfg.global_period else 16
             gen = torch.Generator(device="cuda").manual_seed(0)
             params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
-            card_run = run_speculative_serving(root / f"{name}_card", cfg, params, n_tokens=16)
+            card_run = run_speculative_serving(root / f"{name}_card", cfg, params, n_tokens=n)
             cpu_run = run_speculative_serving(root / f"{name}_cpu", cfg,
                                               tree_map(lambda t: t.cpu(), params),
-                                              n_tokens=16, device="cpu")
-            if card_run.durable_tokens != cpu_run.durable_tokens or len(cpu_run.durable_tokens) != 16:
+                                              n_tokens=n, device="cpu")
+            if card_run.durable_tokens != cpu_run.durable_tokens or len(cpu_run.durable_tokens) != n:
                 raise AssertionError(f"{cfg.name}: served on the card {card_run.durable_tokens}, "
                                      f"on the CPU {cpu_run.durable_tokens}; the card's top-2 "
                                      f"logit margins {_margins(cfg, params, card_run.durable_tokens)}")
-            say("serve", f"{cfg.name}: the 16 tokens served on the card equal a CPU run's "
+            say("serve", f"{cfg.name}: the {n} tokens served on the card equal a CPU run's "
                 f"from the same weights {card_run.durable_tokens}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -912,6 +1189,7 @@ def phase_serve(card: str) -> None:
         raise AssertionError(f"the serving path launched a kernel: {ops.LAUNCHES}")
     say("serve", f"kernel launches on the serving path: {dict(ops.LAUNCHES)} (its reference "
         f"reaches no Pallas kernel)")
+    return dict(ops.LAUNCHES)
 
 
 # --------------------------------------------------------------------------- #
@@ -957,17 +1235,26 @@ def main() -> int:
 
     mamba = get_config("mamba2_370m")
     ssd_res = phase_ssd(mamba)
-    ssd_launches = phase_ssm(mamba)
-    flash_res, flash_launches = phase_flash(get_config("gemma_2b"))
+    paths = {"ssm": phase_ssm(mamba)}
+    flash_res, paths["flash"] = phase_flash(get_config("gemma_2b"))
 
     ops.reset_launch_counts()
     phase_trainer(full)
-    launches = dict(ops.LAUNCHES)
-    say("trainer", f"kernel launches on the main path: {launches}")
-    launches.update(ssd=ssd_launches, flash_attention=flash_launches)
+    paths["trainer"] = dict(ops.LAUNCHES)
+    say("trainer", f"kernel launches on the main path: {paths['trainer']}")
 
     phase_loop(get_config("gemma_2b", smoke=True))
-    phase_serve(card)
+    paths["loop_mamba2_codec"] = phase_loop_ssm(get_config("mamba2_370m", smoke=True))
+    paths["train_full"] = phase_train_full(mamba, card)
+    paths["prefill"] = phase_prefill(card)
+    paths["serve"] = phase_serve(card)
+    # every count was set to 0 just before each path and read just after it;
+    # ``launches`` is each kernel's count on the path it was ported for
+    own = {"delta_encode": "trainer", "delta_decode": "trainer", "ssd": "ssm",
+           "flash_attention": "flash"}
+    launches = {name: paths[path][name] for name, path in own.items()}
+    path_launches = {name: {path: counts[name] for path, counts in paths.items()}
+                     for name in own}
 
     # the line reports each kernel at f32 inputs, and SSD and flash attention
     # (causal) also at bf16, their tensor-core paths
@@ -983,7 +1270,8 @@ def main() -> int:
     line = {"kernels": [
         dict(name=name, dtype=tag, route="cuda",
              source=source[name].relative_to(HERE).as_posix(), replaces=replaces[name],
-             launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
+             launches=launches[name], path_launches=path_launches[name],
+             max_abs_err=m["max_abs_err"], ms=m["ms"],
              plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
              library_ms=m.get("library_ms"))
         for name, tag, m in measured

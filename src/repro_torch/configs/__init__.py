@@ -1,6 +1,7 @@
-"""Architecture registry of the port: ``gemma_2b`` (dense) and
-``mamba2_370m`` (ssm). The other architectures of ``repro.configs`` follow
-with their model families (ROADMAP.md)."""
+"""Architecture registry of the port: the dense ``yi_6b``, ``gemma_2b``,
+``glm4_9b`` and ``gemma3_4b`` and the ssm ``mamba2_370m``, in the order of
+``repro.configs``. The other architectures follow with their model families
+(ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -8,9 +9,15 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCHITECTURES: List[str] = ["gemma_2b", "mamba2_370m"]
+ARCHITECTURES: List[str] = ["yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "mamba2_370m"]
 
-_ALIASES = {"gemma-2b": "gemma_2b", "mamba2-370m": "mamba2_370m"}
+_ALIASES = {
+    "yi-6b": "yi_6b",
+    "gemma-2b": "gemma_2b",
+    "glm4-9b": "glm4_9b",
+    "gemma3-4b": "gemma3_4b",
+    "mamba2-370m": "mamba2_370m",
+}
 
 
 def canonical(name: str) -> str:

@@ -1,41 +1,113 @@
-"""Train-step builder (port of ``repro/launch/steps.py::make_train_step``).
+"""Step-function builders (port of ``repro/launch/steps.py``).
 
-One optimizer step: forward, mean next-token loss, gradients by autograd,
-then AdamW. The reference's tuning flags (``loss_chunk``, ``microbatch``) are
-off by default there and not ported yet, and remat has no counterpart:
-autograd keeps every activation, as remat ``"none"`` does.
+``train_step`` is one optimizer step: forward, mean next-token loss,
+gradients by autograd, then AdamW. ``prefill_step`` runs the full-sequence
+forward and emits the last token's logits. ``serve_step`` decodes one token
+against an explicit KV/state cache, updated in place. The tuning flags
+``loss_chunk`` and ``microbatch`` are read from ``models.tuning`` when a
+train step runs, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import forward_dense, lm_loss
+from ..models.transformer import chunked_lm_loss, decode_step, forward, lm_loss
+from ..models.tuning import get_tuning
 from ..optim import AdamWConfig, adamw_update
 from ..tree import tree_flatten, tree_unflatten
 
+F32 = torch.float32
 
-def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
+
+def split_batch(batch: Dict) -> Tuple[object, Dict]:
+    extras = {k: v for k, v in batch.items() if k not in ("tokens",)}
+    return batch["tokens"], extras
+
+
+def _device(params) -> torch.device:
+    return tree_flatten(params)[0][0].device
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    remat: str = "full"):
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(params, opt_state, batch: Dict):
         """(params, opt_state, {"tokens": (B, S+1) int}) ->
         (new params, new opt_state, loss as a 0-d f32 tensor)."""
+        tun = get_tuning()
         leaves, td = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         tree = tree_unflatten(td, leaves)
         dev = leaves[0].device
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        with torch.enable_grad():
-            logits = forward_dense(cfg, tree, tokens[:, :-1])
-            loss = lm_loss(cfg, logits, tokens[:, 1:])
-            grads = torch.autograd.grad(loss, leaves)
+        tokens, extras = split_batch(batch)
+        tokens = torch.as_tensor(tokens, device=dev)
+
+        def value_and_grad(tok, ext):
+            with torch.enable_grad():
+                out = forward(cfg, tree, tok[:, :-1], extras=ext, remat=remat)
+                if tun.loss_chunk:
+                    loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], None, tun.loss_chunk)
+                else:
+                    loss = lm_loss(cfg, out, tok[:, 1:])
+                grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), grads
+
+        mb = tun.microbatch
+        if mb > 1 and tokens.shape[0] % mb == 0:
+            # gradient accumulation: divides saved-activation memory by mb.
+            # f32 gradients summed in microbatch order from zeros, then / mb
+            n = tokens.shape[0] // mb
+            gsum = [torch.zeros(p.shape, dtype=F32, device=dev) for p in leaves]
+            lsum = torch.zeros((), dtype=F32, device=dev)
+            for i in range(mb):
+                rows = slice(i * n, (i + 1) * n)
+                loss_mb, g = value_and_grad(tokens[rows], {k: v[rows] for k, v in extras.items()})
+                gsum = [a + b.to(F32) for a, b in zip(gsum, g)]
+                lsum = lsum + loss_mb
+            grads = [g / mb for g in gsum]
+            loss = lsum / mb
+        else:
+            loss, grads = value_and_grad(tokens, extras)
         new_params, new_opt = adamw_update(
             tree_unflatten(td, [p.detach() for p in leaves]),
             tree_unflatten(td, list(grads)), opt_state, opt_cfg,
         )
-        return new_params, new_opt, loss.detach()
+        return new_params, new_opt, loss
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch: Dict) -> torch.Tensor:
+        """{"tokens": (B, S) int} -> the last position's logits (B, 1, vocab_padded)."""
+        tokens, extras = split_batch(batch)
+        tokens = torch.as_tensor(tokens, device=_device(params))
+        with torch.no_grad():
+            return forward(cfg, params, tokens, extras=extras, last_only=True)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(params, cache, batch: Dict, cache_index: int):
+        """One token (B, 1) at ``cache_index`` -> (logits, the cache updated in place)."""
+        tokens, extras = split_batch(batch)
+        tokens = torch.as_tensor(tokens, device=_device(params))
+        with torch.no_grad():
+            return decode_step(cfg, params, cache, tokens, cache_index, extras=extras)
+
+    return serve_step
+
+
+def make_step(cfg: ModelConfig, kind: str, remat: str = "full"):
+    if kind == "train":
+        return make_train_step(cfg, remat=remat)
+    if kind == "prefill":
+        return make_prefill_step(cfg)
+    if kind == "decode":
+        return make_serve_step(cfg)
+    raise ValueError(kind)

@@ -1,10 +1,12 @@
-"""Torch model substrate: configs, parameter descriptors, the dense and ssm forwards."""
+"""Torch model substrate: configs, parameter descriptors, tuning flags, the dense and ssm
+forwards."""
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES, shape_by_name
 from .params import (PDesc, init_params, is_desc, param_count, params_from_jax, stack,
                      stack_tree, zeros_from_descs)
 from .ssm import mamba2_mixer, ssd_chunked, ssd_decode_step
-from .transformer import (DenseLM, apply_head, cache_descs, decode_step, forward, forward_dense,
-                          forward_ssm, lm_loss, param_descs)
+from .transformer import (DenseLM, apply_head, cache_descs, chunked_lm_loss, decode_step, forward,
+                          forward_dense, forward_ssm, lm_loss, param_descs)
+from .tuning import Tuning, get_tuning, tuning
 
 __all__ = [
     "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig",
@@ -12,6 +14,7 @@ __all__ = [
     "PDesc", "init_params", "is_desc", "param_count", "params_from_jax", "stack", "stack_tree",
     "zeros_from_descs",
     "mamba2_mixer", "ssd_chunked", "ssd_decode_step",
-    "DenseLM", "apply_head", "cache_descs", "decode_step", "forward", "forward_dense",
-    "forward_ssm", "lm_loss", "param_descs",
+    "DenseLM", "apply_head", "cache_descs", "chunked_lm_loss", "decode_step", "forward",
+    "forward_dense", "forward_ssm", "lm_loss", "param_descs",
+    "Tuning", "get_tuning", "tuning",
 ]

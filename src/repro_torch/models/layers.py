@@ -4,10 +4,10 @@ Activations are ``x (B, S, D)``; attention weights keep the reference's
 layout (``wq (D, N, H)``, ``wo (N, H, D)``) so parameters load unchanged from
 the JAX package. Attention is plain torch math, as the reference's ``_sdpa``
 is plain einsum, with GQA by repeating the kv heads (the reference's default
-path). Decode caches are ``(B, Smax, Nkv, H)`` linear or ring buffers. Not
-ported yet: the cross-attention source, the logit softcap, and the grouped
-"flash-decode" einsum that the reference's ``Tuning.decode_seq_constraint``
-selects (the port has no tuning flags yet; ROADMAP.md section 1).
+path). Decode caches are ``(B, Smax, Nkv, H)`` linear or ring buffers. Under
+``Tuning.decode_seq_constraint`` decode takes the reference's grouped
+"flash-decode" einsum instead, which reads the cache without repeating it.
+Not ported yet: the cross-attention source (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .params import PDesc
+from .tuning import get_tuning
 
 F32 = torch.float32
 
@@ -48,6 +49,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(logits / cap) * cap if cap > 0 else logits
+
+
 def attn_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
@@ -59,10 +64,11 @@ def attn_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
     }
 
 
-def _sdpa(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _sdpa(q, k, v, mask: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
     """q/k/v (B, S|T, N, H) with kv already repeated to N heads."""
     scale = 1.0 / np.sqrt(q.shape[-1])
     logits = torch.einsum("bsnh,btnh->bnst", q, k).to(_at_least_f32(q.dtype)) * scale
+    logits = _soft_cap(logits, softcap)
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -108,10 +114,10 @@ def attention(
     where ``dynamic_update_slice`` would clamp it."""
     if cross_src is not None:
         raise NotImplementedError("cross-attention (encdec, vlm) is not ported yet")
-    if cfg.logit_softcap:
-        raise NotImplementedError("logit_softcap is not ported yet")
     B, S, D = x.shape
-    groups = cfg.num_heads // cfg.num_kv_heads
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    groups = nq // nkv
+    flash_decode = cache is not None and get_tuning().decode_seq_constraint
 
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
@@ -139,11 +145,21 @@ def attention(
         if window is not None:
             near = kpos > qpos - window
             mask = near if mask is None else mask & near
+    if flash_decode:
+        # the grouped einsum: no kv repeat; the mask broadcasts over G
+        qg = q.reshape(B, S, nkv, groups, hd)
+        scale = 1.0 / np.sqrt(hd)
+        logits = torch.einsum("bsngh,btnh->bngst", qg, k).to(_at_least_f32(q.dtype)) * scale
+        logits = _soft_cap(logits, cfg.logit_softcap)
+        logits = torch.where(mask[:, :, None], logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bngst,btnh->bsngh", probs, v).reshape(B, S, nq, hd)
+        return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
     if groups > 1:  # jnp.repeat(k, groups, axis=2); backward is a plain sum
-        T, nkv, hd = k.shape[1:]
-        k = k[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nkv * groups, hd)
-        v = v[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nkv * groups, hd)
-    out = _sdpa(q, k, v, mask)
+        T = k.shape[1]
+        k = k[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nq, hd)
+        v = v[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nq, hd)
+    out = _sdpa(q, k, v, mask, cfg.logit_softcap)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
 
 

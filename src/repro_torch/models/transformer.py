@@ -1,34 +1,47 @@
 """Model assembly, prefill and decode (port of ``repro/models/transformer.py``).
 
 Family map (as the reference's ``_FORWARD``):
-  dense -> forward_dense  (gemma-2b: flat plan of attention + MLP blocks)
+  dense -> forward_dense  (the flat plan: gemma-2b, yi-6b, glm4-9b; the
+                           grouped local/global plan: gemma3-4b)
   ssm   -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks)
 
-Each family is token embedding, a stack of identical blocks whose weights
+Each family is token embedding, stacks of identical blocks whose weights
 are stacked along a leading layer axis, and a tied or separate LM head. The
-reference scans the stack with ``lax.scan``; here a Python loop indexes the
-stacked weights. With a decode cache (``cache_descs``, ``decode_step``) the
-loop hands each block per-layer views of the stacked cache buffers, and the
-blocks write their new k/v or conv/SSM state through those views in place:
-the cache tree passed in is updated and returned, not copied, where the
-reference re-stacks a new tree every step. MoE, MLA, the gemma3 local/global
-plan, the hybrid, encdec and vlm families come with later slices
-(ROADMAP.md section 1, item 2).
+reference scans each stack with ``lax.scan`` (``models/scan_utils.py``);
+here a Python loop indexes the stacked weights, so that module has no
+counterpart. gemma3's plan nests two stacks: ``group_locals`` is
+(groups, locals, ...), ``group_global`` (groups, ...), and ``tail_locals``
+the locals after the last group; its local layers attend within a sliding
+window and decode into window-sized ring caches. With a decode cache
+(``cache_descs``, ``decode_step``) the loop hands each block per-layer views
+of the stacked cache buffers, and the blocks write their new k/v or conv/SSM
+state through those views in place: the cache tree passed in is updated and
+returned, not copied, where the reference re-stacks a new tree every step.
+Training may recompute each block in the backward pass (``remat``), and the
+LM loss may run chunk by chunk (``chunked_lm_loss``, ``Tuning.loss_chunk``).
+MoE, MLA, the hybrid, encdec and vlm families come with later slices
+(ROADMAP.md section 1).
 """
 from __future__ import annotations
 
+import functools
 import operator
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .config import ModelConfig
 from .layers import attention, attn_descs, mlp, mlp_descs, rms_norm
 from .params import PDesc, stack_tree
 from .ssm import mamba2_mixer, ssm_descs
+from .tuning import get_tuning
+
+F32 = torch.float32
 
 
 def _block_descs(cfg: ModelConfig, *, kind: str) -> Dict:
@@ -57,15 +70,34 @@ def _embed_descs(cfg: ModelConfig) -> Dict:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "ssm" and cfg.ssm is not None:
         return
-    if cfg.family != "dense" or cfg.global_period or cfg.moe or cfg.mla:
+    if cfg.family != "dense" or cfg.moe or cfg.mla:
         raise NotImplementedError(
-            f"{cfg.name}: only the flat dense plan and the ssm family are ported yet "
-            "(ROADMAP.md section 1, item 2)")
+            f"{cfg.name}: only the dense plans (flat and gemma3's local/global) and the ssm "
+            "family are ported yet (ROADMAP.md section 1)")
+
+
+def _dense_plan(cfg: ModelConfig) -> Dict:
+    """Segments of homogeneous stacks (the reference's plans less deepseek's,
+    which needs MLA and MoE)."""
+    if cfg.global_period:  # gemma3: groups of (p-1) local + 1 global, + tail
+        p = cfg.global_period
+        n_groups = cfg.num_layers // p
+        tail = cfg.num_layers - n_groups * p
+        return {"kind": "gemma3", "groups": n_groups, "locals": p - 1, "tail": tail}
+    return {"kind": "flat", "layers": cfg.num_layers}
 
 
 def dense_descs(cfg: ModelConfig) -> Dict:
+    plan = _dense_plan(cfg)
     descs = _embed_descs(cfg)
-    descs["layers"] = stack_tree(_block_descs(cfg, kind="attn"), cfg.num_layers)
+    local = _block_descs(cfg, kind="attn")
+    if plan["kind"] == "flat":
+        descs["layers"] = stack_tree(local, plan["layers"])
+        return descs
+    descs["group_locals"] = stack_tree(stack_tree(local, plan["locals"]), plan["groups"])
+    descs["group_global"] = stack_tree(_block_descs(cfg, kind="attn"), plan["groups"])
+    if plan["tail"]:
+        descs["tail_locals"] = stack_tree(local, plan["tail"])
     return descs
 
 
@@ -97,9 +129,19 @@ def apply_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
+def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor, last_only: bool = False):
+    if last_only:
+        x = x[:, -1:]
+    elif get_tuning().loss_chunk:
+        # leave hidden states: chunked_lm_loss applies the head chunk-wise to
+        # bound the f32 logits working set
+        return x
+    return apply_head(cfg, params, x)
+
+
 def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 *, kind: str, cache: Optional[Dict] = None,
-                 cache_index: Optional[int] = None) -> torch.Tensor:
+                 *, kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
+                 cache_index: Optional[int] = None, ring: bool = False) -> torch.Tensor:
     """One block; with a cache, its per-layer views are updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
@@ -108,61 +150,160 @@ def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.T
             cache["conv"].copy_(new["conv"])
             cache["state"].copy_(new["state"])
         return x + out
-    out, _ = attention(lp["attn"], h, cfg, positions, cache=cache, cache_index=cache_index)
+    out, _ = attention(lp["attn"], h, cfg, positions, window=window, cache=cache,
+                       cache_index=cache_index, ring=ring)
     x = x + out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(lp["mlp"], h2, cfg.activation)
 
 
-def _stack(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, kind: str,
-           cache: Optional[Dict], cache_index: Optional[int]):
+def _keep_weight_products(ctx, func, *args, **kwargs):
+    """The "dots" policy: keep the output of every product with no batch
+    dimension and recompute the rest. ``torch.einsum`` runs a product as a
+    ``bmm`` whose leading dim is the product of the batch dims, so these are
+    the ``bmm`` of batch 1: the weight products x.W (q/k/v/o, the MLP, the
+    mixer's projections). Attention's per-(batch, head) products, the SSD
+    einsums, norms and activations are recomputed; a per-head product whose
+    batch x heads is 1 is kept too."""
+    if func is torch.ops.aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, policy: str) -> Callable:
+    """Recompute ``fn`` in the backward pass instead of keeping its
+    activations: "none" keeps them all, "full" keeps only ``fn``'s inputs
+    (``jax.checkpoint``), "dots" also keeps the weight products
+    (``checkpoint_dots_with_no_batch_dims``; ``_keep_weight_products``).
+    Without autograd recording (prefill, decode) ``fn`` runs as it is."""
+    if policy == "none":
+        return fn
+    if policy not in ("dots", "full"):
+        raise ValueError(f"remat policy {policy!r}: expected none, dots or full")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _keep_weight_products)
+
+    @functools.wraps(fn)
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
+def _layer(tree: Optional[Dict], *idx: int) -> Optional[Dict]:
+    """The per-layer slice ``t[i][j]...`` of every leaf of a stacked tree
+    (weights, or views of the decode cache that write through)."""
+    if tree is None:
+        return None
+
+    def pick(t):
+        for i in idx:
+            t = t[i]
+        return t
+
+    return tree_map(pick, tree)
+
+
+def _run_stack(cfg: ModelConfig, stacked: Dict, x: torch.Tensor, positions: torch.Tensor, *,
+               kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
+               cache_index: Optional[int] = None, ring: bool = False,
+               remat: str = "none") -> torch.Tensor:
+    """The reference's ``_scan_stack``: every layer of a stacked block."""
+    n = tree_flatten(stacked)[0][0].shape[0]
+
+    def body(lp, h, c):
+        return _block_apply(cfg, lp, h, positions, kind=kind, window=window, cache=c,
+                            cache_index=cache_index, ring=ring)
+
+    body = _maybe_remat(body, remat)
+    for i in range(n):
+        x = body(_layer(stacked, i), x, _layer(cache, i))
+    return x
+
+
+def _positions(tokens: torch.Tensor, cache: Optional[Dict], cache_index: Optional[int]):
     B, S = tokens.shape
     if cache is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    else:
-        cache_index = operator.index(cache_index)
-        positions = torch.full((B, S), cache_index, dtype=torch.int32, device=tokens.device)
-    x = _embed(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        lp = tree_map(lambda w: w[i], params["layers"])
-        c = None if cache is None else tree_map(lambda t: t[i], cache["layers"])
-        x = _block_apply(cfg, lp, x, positions, kind=kind, cache=c, cache_index=cache_index)
-    logits = apply_head(cfg, params, x)
-    return logits if cache is None else (logits, cache)
+        return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    return torch.full((B, S), operator.index(cache_index), dtype=torch.int32,
+                      device=tokens.device)
 
 
-def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                  last_only: bool = False, *, remat: str = "none",
                   cache: Optional[Dict] = None, cache_index: Optional[int] = None):
-    """tokens (B, S) int -> logits (B, S, vocab_padded); with a cache,
-    single-token decode at ``cache_index`` -> (logits, the updated cache)."""
+    """tokens (B, S) int -> logits (B, S, vocab_padded) (the last position
+    alone under ``last_only``; hidden states under ``Tuning.loss_chunk``);
+    with a cache, single-token decode at ``cache_index`` -> (logits, the
+    updated cache)."""
     _check_supported(cfg)
     if cfg.family != "dense":
         raise ValueError(f"{cfg.name} is of the {cfg.family} family, not dense")
-    return _stack(cfg, params, tokens, "attn", cache, cache_index)
+    plan = _dense_plan(cfg)
+    decode = cache is not None
+    positions = _positions(tokens, cache, cache_index)
+    x = _embed(cfg, params, tokens)
+    if plan["kind"] == "flat":
+        x = _run_stack(cfg, params["layers"], x, positions, kind="attn",
+                       cache=cache["layers"] if decode else None, cache_index=cache_index,
+                       remat=remat)
+    else:  # gemma3 grouped local/global
+        def group_body(gl, gg, cl, cg, h):
+            h = _run_stack(cfg, gl, h, positions, kind="attn", window=cfg.sliding_window,
+                           cache=cl, cache_index=cache_index, ring=decode)
+            return _block_apply(cfg, gg, h, positions, kind="attn", cache=cg,
+                                cache_index=cache_index)
+
+        group_body = _maybe_remat(group_body, remat)
+        for g in range(plan["groups"]):
+            x = group_body(_layer(params["group_locals"], g), _layer(params["group_global"], g),
+                           _layer(cache["group_locals"], g) if decode else None,
+                           _layer(cache["group_global"], g) if decode else None, x)
+        if plan["tail"]:
+            x = _run_stack(cfg, params["tail_locals"], x, positions, kind="attn",
+                           window=cfg.sliding_window,
+                           cache=cache["tail_locals"] if decode else None,
+                           cache_index=cache_index, ring=decode, remat=remat)
+    logits = _logits(cfg, params, x, last_only)
+    return (logits, cache) if decode else logits
 
 
-def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                last_only: bool = False, *, remat: str = "none",
                 cache: Optional[Dict] = None, cache_index: Optional[int] = None):
     """tokens (B, S) int -> logits (B, S, vocab_padded), every mixer on the
     model's own chunked SSD (the reference's forward passes no ssd_impl);
-    with a cache, single-token decode -> (logits, the updated cache)."""
+    ``last_only`` and ``Tuning.loss_chunk`` as for ``forward_dense``; with a
+    cache, single-token decode -> (logits, the updated cache)."""
     _check_supported(cfg)
     if cfg.family != "ssm":
         raise ValueError(f"{cfg.name} is of the {cfg.family} family, not ssm")
-    return _stack(cfg, params, tokens, "ssm", cache, cache_index)
+    decode = cache is not None
+    x = _embed(cfg, params, tokens)
+    x = _run_stack(cfg, params["layers"], x, _positions(tokens, cache, cache_index), kind="ssm",
+                   cache=cache["layers"] if decode else None, cache_index=cache_index,
+                   remat=remat)
+    logits = _logits(cfg, params, x, last_only)
+    return (logits, cache) if decode else logits
 
 
 _FORWARD = {"dense": forward_dense, "ssm": forward_ssm}
 
 
-def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-            cache: Optional[Dict] = None, cache_index: Optional[int] = None):
-    """Dispatch by family, as the reference's ``forward``. Without a cache it
-    returns logits only (the reference also returns its decode cache and MoE
-    aux loss, which these families do not produce without a cache); with a
-    cache, (logits, the updated cache)."""
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *, extras=None, **kw):
+    """Dispatch by family, as the reference's ``forward``; ``kw`` are the
+    family forward's (``last_only``, ``remat``, ``cache``, ``cache_index``).
+    Without a cache it returns logits only: the reference also returns its
+    decode cache and the MoE aux loss, which these families do not produce
+    (the aux loss comes with MoE, ROADMAP.md section 3); with a cache,
+    (logits, the updated cache). ``extras`` feed the encdec and vlm
+    families, not ported yet; the others ignore them, as in the reference."""
     _check_supported(cfg)
-    return _FORWARD[cfg.family](cfg, params, tokens, cache=cache, cache_index=cache_index)
+    return _FORWARD[cfg.family](cfg, params, tokens, **kw)
 
 
 def _attn_cache_desc(cfg: ModelConfig, batch: int, length: int) -> Dict[str, PDesc]:
@@ -186,24 +327,35 @@ def _ssm_cache_desc(cfg: ModelConfig, batch: int) -> Dict[str, PDesc]:
 
 
 def cache_descs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
-    """Decode-cache descriptor tree matching the family's layer stack."""
+    """Decode-cache descriptor tree matching the family's layer stacks."""
     _check_supported(cfg)
     if cfg.family == "ssm":
         return {"layers": stack_tree(_ssm_cache_desc(cfg, batch), cfg.num_layers)}
-    return {"layers": stack_tree(_attn_cache_desc(cfg, batch, max_len), cfg.num_layers)}
+    plan = _dense_plan(cfg)
+    if plan["kind"] == "flat":
+        return {"layers": stack_tree(_attn_cache_desc(cfg, batch, max_len), plan["layers"])}
+    # gemma3: ring caches (window-sized) for locals, full for globals
+    w = min(cfg.sliding_window, max_len)
+    out = {
+        "group_locals": stack_tree(
+            stack_tree(_attn_cache_desc(cfg, batch, w), plan["locals"]), plan["groups"]),
+        "group_global": stack_tree(_attn_cache_desc(cfg, batch, max_len), plan["groups"]),
+    }
+    if plan["tail"]:
+        out["tail_locals"] = stack_tree(_attn_cache_desc(cfg, batch, w), plan["tail"])
+    return out
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
-                cache_index: int) -> Tuple[torch.Tensor, Dict]:
+                cache_index: int, *, extras=None) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_index`` (a host int) -> (logits
     (B, 1, vocab_padded), the cache updated in place). The families not
     ported yet (the encdec branch of the reference among them) raise."""
-    return forward(cfg, params, tokens, cache=cache, cache_index=cache_index)
+    return forward(cfg, params, tokens, extras=extras, cache=cache, cache_index=cache_index)
 
 
-def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
-            aux: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; padded vocab entries are masked out."""
+def _token_nll(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log p(label) per position, in f32; padded vocab entries masked out."""
     logits = logits.float()
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
@@ -213,8 +365,35 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     b_idx = torch.arange(B, device=labels.device)[:, None]
     s_idx = torch.arange(S, device=labels.device)[None, :]
     # advanced indexing (backward: deterministic index_put) rather than gather
-    ll = logits[b_idx, s_idx, labels.long()]
-    loss = torch.mean(logz - ll)
+    return logz - logits[b_idx, s_idx, labels.long()]
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; padded vocab entries are masked out."""
+    loss = torch.mean(_token_nll(cfg, logits, labels))
+    return loss if aux is None else loss + aux
+
+
+def chunked_lm_loss(cfg: ModelConfig, params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
+                    aux: Optional[torch.Tensor], chunk: int) -> torch.Tensor:
+    """LM head + cross-entropy over sequence chunks of ``hidden`` (B, S, D),
+    the forward's output under ``Tuning.loss_chunk``; each chunk is
+    recomputed in the backward pass, so a (B, chunk, V) f32 block of logits
+    is the only head-sized live tensor. Falls back to the full loss when
+    ``chunk`` does not divide S, as the reference does."""
+    B, S, _ = hidden.shape
+    if S % chunk != 0:
+        return lm_loss(cfg, apply_head(cfg, params, hidden), labels, aux)
+
+    def body(xc, yc):
+        return torch.sum(_token_nll(cfg, apply_head(cfg, params, xc), yc))
+
+    body = _maybe_remat(body, "full")
+    total = torch.zeros((), dtype=F32, device=hidden.device)
+    for c in range(0, S, chunk):
+        total = total + body(hidden[:, c: c + chunk], labels[:, c: c + chunk])
+    loss = total / (B * S)
     return loss if aux is None else loss + aux
 
 

@@ -62,7 +62,7 @@ def run_resilient_training(
     dev = resolve_device(device)
     data = SyntheticLMData(cfg.vocab_size, global_batch, seq_len, seed=seed)
     opt_cfg = AdamWConfig(lr=lr)
-    step_fn = make_train_step(cfg, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, remat="none")
 
     def init_state():
         gen = torch.Generator(device=dev).manual_seed(seed)

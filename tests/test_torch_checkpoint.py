@@ -118,3 +118,40 @@ def test_codec_stream_matches_jax_flatten():
     flat_t, shapes, _ = _flatten(_to_port(s0))
     np.testing.assert_array_equal(flat_t.numpy(), flat_j)
     assert shapes[0] == ((1000,), torch.float32)
+
+
+def _model_state(arch: str):
+    """The smoke config's JAX-initialised params (gemma3's nested group
+    stacks, mamba2's mixer leaves) and an AdamW-shaped state."""
+    from repro.configs import get_config
+    from repro.models import init_params, param_descs
+
+    cfg = get_config(arch, smoke=True)
+    params = jax.tree_util.tree_map(
+        np.asarray, init_params(param_descs(cfg), jax.random.key(0), np.float32))
+    m = jax.tree_util.tree_map(lambda p: (0.01 * p).astype(np.float32), params)
+    v = jax.tree_util.tree_map(lambda p: (1e-9 * p * p).astype(np.float32), params)
+    return params, {"m": m, "v": v, "step": np.array(3, np.int32)}
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b", "mamba2_370m"])
+def test_model_blobs_interchange(arch):
+    """Blobs of a model's state: the reference's decode in the port, the
+    port's in the reference; the flat stream of the nested stacks is the
+    reference's sorted-key order."""
+    s0 = _model_state(arch)
+    s1 = _step(s0, 4)
+    flat_j, _, _ = jax_flatten(s0)
+    flat_t, _, _ = _flatten(_to_port(s0))
+    np.testing.assert_array_equal(flat_t.numpy(), flat_j)
+    jb, jflat0 = JaxCodec().encode(0, s0, None)
+    jd, _ = JaxCodec().encode(1, s1, jflat0)
+    params, _ = _decode_port([jb], s0)
+    for got, want in zip(params, jax.tree_util.tree_leaves(s0[0])):
+        np.testing.assert_array_equal(got, want)
+    _check(_decode_port([jb, jd], s0), s0, s1, jd)
+    codec = DeltaCheckpointCodec()
+    base, flat0 = codec.encode(0, _to_port(s0), None)
+    delta, _ = codec.encode(1, _to_port(s1), flat0)
+    assert _keys(base) == _keys(jb) and _keys(delta) == _keys(jd)
+    _check(_decode_jax([base, delta], s0), s0, s1, delta)

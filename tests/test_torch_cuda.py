@@ -329,3 +329,109 @@ def test_cuda_serving_decode_and_replay(arch, tmp_path):
     assert killed.rollbacks == 1 and killed.tokens_generated == 10
     assert len(base.durable_tokens) == 10 and killed.durable_tokens == base.durable_tokens
     assert _launches() == before
+
+
+# --------------------------------------------------------------------------- #
+# the launch layer on the card: tuning knobs, remat, the ssm train step        #
+# --------------------------------------------------------------------------- #
+def _smoke(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_descs
+
+    cfg = get_config(arch, smoke=True)
+    params = init_params(param_descs(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 17)).astype(np.int32)
+    return cfg, params, {"tokens": tokens}
+
+
+def _train(cfg, params, batch, remat="none", **tune):
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import tuning
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_flatten
+
+    with tuning(**tune):
+        p2, _, loss = make_train_step(cfg, AdamWConfig(lr=1e-3), remat=remat)(
+            params, adamw_init(params), batch)
+    return loss, tree_flatten(p2)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob,loss_tol,param_tol", [
+    # the bounds of tests/test_tuning.py (microbatch: Adam's first step
+    # turns a reassociated near-zero gradient into up to one lr step)
+    ({"loss_chunk": 4}, 1e-4, 1e-4),
+    ({"microbatch": 2}, 1e-4, 2e-3),
+    ({"constrain_activations": True}, 1e-5, 1e-5),
+    ({"remat": "dots"}, 1e-5, 1e-5),
+    ({"remat": "full"}, 1e-5, 1e-5),
+])
+def test_cuda_tuned_train_step_matches_untuned(knob, loss_tol, param_tol):
+    """The tuning knobs and remat policies on the card at yi smoke: the same
+    loss and params as the untuned step."""
+    _cuda()
+    cfg, params, batch = _smoke("yi_6b")
+    loss0, p0 = _train(cfg, params, batch)
+    loss1, p1 = _train(cfg, params, batch, **knob)
+    assert abs(float(loss1) - float(loss0)) < loss_tol
+    assert max(float((a - b).abs().max()) for a, b in zip(p0, p1)) < param_tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_matches_baseline_decode():
+    from repro_torch.models import cache_descs, decode_step, tuning, zeros_from_descs
+
+    _cuda()
+    cfg, params, _ = _smoke("yi_6b")
+    tok = torch.ones((2, 1), dtype=torch.int32, device="cuda")
+    outs = {}
+    for flag in (False, True):
+        cache = zeros_from_descs(cache_descs(cfg, 2, 8), device="cuda")
+        with tuning(decode_seq_constraint=flag), torch.no_grad():
+            outs[flag] = torch.cat([decode_step(cfg, params, cache, tok, i)[0]
+                                    for i in range(4)], dim=1)
+    torch.testing.assert_close(outs[True], outs[False], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_train_step_bit_identical_under_determinism(monkeypatch):
+    """Two calls of the mamba2 smoke train step from one state, under
+    torch.use_deterministic_algorithms(True) (the setting of the resilient
+    loop's bit-identical claim), give bit-identical loss and params; the
+    full remat policy matches keeping every activation."""
+    _cuda()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, params, batch = _smoke("mamba2_370m")
+        loss_a, pa = _train(cfg, params, batch)
+        loss_b, pb = _train(cfg, params, batch)
+        loss_f, pf = _train(cfg, params, batch, remat="full")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert abs(float(loss_f) - float(loss_a)) < 1e-5
+    assert max(float((a - b).abs().max()) for a, b in zip(pa, pf)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_serving_equals_cpu(tmp_path):
+    """gemma3 smoke served on the card: 24 tokens (its window-8 rings wrap),
+    failure-free and with a kill, equal a CPU run's from the same weights;
+    no kernel is launched."""
+    from repro_torch.train import run_speculative_serving
+    from repro_torch.tree import tree_map
+
+    _cuda()
+    cfg, params, _ = _smoke("gemma3_4b")
+    before = _launches()
+    card = run_speculative_serving(tmp_path / "card", cfg, params, n_tokens=24)
+    killed = run_speculative_serving(tmp_path / "kill", cfg, params, n_tokens=24, kill_at=12)
+    cpu = run_speculative_serving(tmp_path / "cpu", cfg, tree_map(lambda t: t.cpu(), params),
+                                  n_tokens=24, device="cpu")
+    assert len(cpu.durable_tokens) == 24 and card.durable_tokens == cpu.durable_tokens
+    assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
+    assert _launches() == before
