@@ -49,33 +49,42 @@ Phases, each printing its own line and raising on failure:
            with the failure-free digest; with the delta codec (whose restore
            is lossy, so no digest is claimed) a failure-free run and a run
            with a trainer kill complete, list every step once, launch the
-           codec kernels, and their losses agree
+           codec kernels, and their losses agree. Then the granite-moe,
+           deepseek-v2-lite and zamba2 smoke configs (moe, mla, hybrid): a
+           trainer kill ends with the failure-free digest, and the external
+           metrics list every step once
   train_full  one make_train_step of mamba2-370m at full width (421,709,312
            parameters) on 1 x 2048 tokens, f32, under remat "none" and
            "full" from the same state, in turns: median step time and peak
            memory of each; losses and new params of the two within 1e-6 of
            max |param| (bit-identity printed); two calls under one policy
-           bit-identical
-  prefill  make_prefill_step at 1 x 2048 tokens, f32, on yi-6b, glm4-9b and
-           gemma3-4b at full width, one model at a time: median of 3 warmed
-           calls, achieved TFLOP/s against the f32 peak; the last-position
-           logits equal the full forward's last row within 1e-5 of max |logit|
+           bit-identical. Then granite-moe at full width and 12 of its 32
+           layers (TRAIN_MOE_LAYERS) under remat "full": step time, peak
+           memory, two calls bit-identical
+  prefill  make_prefill_step at 1 x 2048 tokens, f32, on yi-6b, glm4-9b,
+           gemma3-4b, granite-moe, deepseek-v2-lite and zamba2 at full width,
+           one model at a time: median of 3 warmed calls, achieved TFLOP/s
+           against the f32 peak (operations by the reference's algorithm,
+           _prefill_flops); the last-position logits equal the full forward's
+           last row within 1e-5 of max |logit|
   serve    the speculative serving path (models decode_step, train/serve.py)
-           at gemma-2b's full width and 18 layers, gemma3-4b's 34 and
-           mamba2-370m's 48, f32, seeded random weights, batch 1:
-           teacher-forced decode_step against one forward over 64 / 256
-           tokens (1e-4 / 1e-3 of max |logit|; the dense checks in float64,
-           see SERVE_TOL and SERVE_CHECK_GROUPS); the median decode ms per
-           token against the batch-1 HBM
-           bound (weight bytes over 3.35 TB/s); device time, launches and
-           idle share of 8 warmed steps (torch.profiler); a 16-token serving
-           run failure-free and with kill_at=8 give the same durable tokens,
+           at full width: gemma-2b x18, gemma3-4b x34, mamba2-370m x48,
+           granite-moe x32, deepseek-v2-lite x27 and zamba2 x38, f32, seeded
+           random weights, batch 1: the median decode ms per token against
+           the batch-1 HBM bound (weight bytes over 3.35 TB/s; for MoE the
+           active-expert bound beside it); device time, launches and idle
+           share of 8 warmed steps (torch.profiler); a 16-token serving run
+           failure-free and with kill_at=8 give the same durable tokens,
            with the seconds Restore took to replay; gemma-2b's decode timed
-           with Tuning.decode_seq_constraint off and on, in turns; at the
-           smoke configs of the five architectures the tokens served on the
-           card equal a CPU run's from the same weights (gemma3's 24 tokens
-           wrap its window-8 rings). The serving path launches none of the
-           kernels above
+           with Tuning.decode_seq_constraint off and on, in turns; then
+           teacher-forced decode_step against one forward over 64 / 256
+           tokens (1e-4 / 1e-3 of max |logit|; the checks of the families
+           with attention in float64, see SERVE_TOL and SERVE_CHECK_CUT; MoE
+           at a capacity that drops no slot, _held). At the smoke configs
+           of the eight architectures the tokens served on the card equal a
+           CPU run's from the same weights (gemma3's 24 tokens wrap its
+           window-8 rings). The serving path launches none of the kernels
+           above
 
 Then it prints the card's name and power limit, a JSON line with each
 kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
@@ -128,6 +137,16 @@ FLASH_BATCH, FLASH_SEQ = 4, 2048
 SSM_TOL = 1e-3
 #: tokens of the train_full and prefill phases (batch 1)
 TRAIN_SEQ = PREFILL_SEQ = 2048
+#: the moe, mla and hybrid architectures (their smoke configs in the loop
+#: phase, full width in prefill and serve)
+NEW_FAMILIES = ("granite_moe_3b_a800m", "deepseek_v2_lite_16b", "zamba2_1p2b")
+#: granite-moe's depth in train_full: the functional AdamW holds params,
+#: grads, both moments and the new params and moments at once (28 bytes a
+#: parameter in f32, and its temporaries for the largest leaf, the stacked
+#: experts), so the 32 layers' 3.38e9 parameters (95 GB) do not fit the
+#: card, nor do 16 (1.77e9: out of memory on an H100 in adamw_update, beside
+#: the first call's params that the second is compared with); 12 (1.37e9) do
+TRAIN_MOE_LAYERS = 12
 
 
 def say(phase: str, msg: str) -> None:
@@ -225,14 +244,24 @@ def sass_counts(lib: Path, opcode: str) -> dict:
 
 def profile(fn) -> list:
     """torch.profiler's per-operator averages of one synchronised run of
-    ``fn`` on the card (host operators and device kernels)."""
+    ``fn`` on the card (host operators and device kernels). The tracer has
+    now and then handed back a trace without a single device kernel (one
+    of the ssd phase's profiles, on an H100 with torch 2.11): such a trace
+    is taken once more, and ``by_name`` fails if the second is empty too."""
     from torch.profiler import ProfilerActivity, profile as _profile
 
-    torch.cuda.synchronize()
-    with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    return prof.key_averages()
+        with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        try:
+            by_name(events, device=True)
+            return events
+        except AssertionError:
+            say("profile", f"torch.profiler recorded no device time (attempt {attempt + 1})")
+    return events
 
 
 def by_name(events, device: bool) -> dict:
@@ -416,7 +445,7 @@ def phase_ssm(cfg) -> dict:
         kernel_route()
         t_chunked, t_kernel = [], []
         for _ in range(3):  # in turns
-            want, t = timed(lambda: forward_ssm(cfg, params, tokens))
+            want, t = timed(lambda: forward_ssm(cfg, params, tokens)[0])
             t_chunked.append(t)
             ops.reset_launch_counts()
             got, t = timed(kernel_route)
@@ -787,10 +816,50 @@ def phase_loop_ssm(cfg) -> dict:
     return launches
 
 
+def phase_loop_families(names) -> dict:
+    """The resilient loop on the moe, mla and hybrid smoke configs: a
+    trainer kill ends with the failure-free digest (the MoE dispatch is
+    deterministic on the card), and the external metrics list every step
+    once. Returns the kernels' launches on these runs (their reference
+    reaches no Pallas kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import run_resilient_training
+
+    steps = 8
+    root = RUN_DIR / "loop_families"
+    ops.reset_launch_counts()
+    for name in names:
+        cfg = get_config(name, smoke=True)
+        shutil.rmtree(root, ignore_errors=True)
+        t0 = time.perf_counter()
+        try:
+            base = run_resilient_training(root / "base", cfg, steps=steps)
+            killed = run_resilient_training(root / "kt", cfg, steps=steps, kill_trainer_at=4)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        if killed.params_digest != base.params_digest or killed.rollbacks < 1:
+            raise AssertionError(f"{cfg.name} trainer kill: digest {killed.params_digest} != "
+                                 f"failure-free {base.params_digest} (rollbacks {killed.rollbacks})")
+        for what, res in (("failure-free", base), ("kill_trainer_at=4", killed)):
+            ext = sorted(s for s, _ in res.external_metrics)
+            if res.final_step != steps or ext != list(range(steps)):
+                raise AssertionError(f"{cfg.name} {what}: step {res.final_step}, external "
+                                     f"metrics steps {ext}")
+        losses = [l for _, l in sorted(base.external_metrics)]
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{cfg.name} losses {losses}")
+        say("loop", f"{cfg.name}: trainer-kill digest {killed.params_digest} == failure-free "
+            f"(rollbacks {killed.rollbacks}); external metrics steps 0..{steps - 1} once each; "
+            f"losses {np.round(losses, 6).tolist()}; {time.perf_counter() - t0:.1f} s")
+    return dict(ops.LAUNCHES)
+
+
 # --------------------------------------------------------------------------- #
-def phase_train_full(cfg, card: str) -> dict:
-    """One train step of mamba2-370m at full width under remat "none" and
-    "full", from the same state, in turns. Returns the kernels' launches."""
+def phase_train_full(cfg, card: str, policies=("none", "full")) -> dict:
+    """One train step at full width under each remat policy, from the same
+    state, in turns (two policies: their losses and params agree); two calls
+    under one policy are bit-identical. Returns the kernels' launches."""
     from repro_torch.kernels import ops
     from repro_torch.launch import make_train_step
     from repro_torch.models import init_params, param_count, param_descs
@@ -806,7 +875,6 @@ def phase_train_full(cfg, card: str) -> dict:
     opt = adamw_init(params)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1), generator=gen,
                                      device="cuda")}
-    policies = ("none", "full")
     steps = {r: make_train_step(cfg, AdamWConfig(lr=1e-3), remat=r) for r in policies}
     times = {r: [] for r in policies}
     peak = {r: 0 for r in policies}
@@ -832,54 +900,115 @@ def phase_train_full(cfg, card: str) -> dict:
                     torch.equal(a, b) for a, b in zip(leaves, first[r][1]))
             del new_p, leaves, loss
     launches = dict(ops.LAUNCHES)
-    (loss_n, p_n), (loss_f, p_f) = first["none"], first["full"]
-    if not (bool(torch.isfinite(loss_n)) and all(bool(torch.isfinite(t).all()) for t in p_n)):
-        raise AssertionError(f"{cfg.name} train step: loss {float(loss_n)}")
-    scale = max(float(t.abs().max()) for t in p_n)
-    p_diff = max(float((a - b).abs().max()) for a, b in zip(p_n, p_f))
-    l_diff = abs(float(loss_n) - float(loss_f))
-    bit = torch.equal(loss_n, loss_f) and all(torch.equal(a, b) for a, b in zip(p_n, p_f))
-    if p_diff > 1e-6 * scale or l_diff > 1e-6 * abs(float(loss_n)):
-        raise AssertionError(f"{cfg.name}: remat full vs none: params differ by {p_diff:.3e} "
-                             f"(max |param| {scale:.3e}), losses by {l_diff:.3e}")
+    loss_0, p_0 = first[policies[0]]
+    if not (bool(torch.isfinite(loss_0)) and all(bool(torch.isfinite(t).all()) for t in p_0)):
+        raise AssertionError(f"{cfg.name} train step: loss {float(loss_0)}")
     if not all(same.values()):
         raise AssertionError(f"{cfg.name}: two train steps under one policy differ: {same}")
     med = {r: float(np.median(times[r])) for r in policies}
+    what = [f"remat {r} median {med[r] * 1e3:.1f} ms a step, peak {peak[r] / 2**30:.2f} GiB "
+            "above the state held" for r in policies]
+    if len(policies) == 2:
+        (loss_n, p_n), (loss_f, p_f) = first["none"], first["full"]
+        scale = max(float(t.abs().max()) for t in p_n)
+        p_diff = max(float((a - b).abs().max()) for a, b in zip(p_n, p_f))
+        l_diff = abs(float(loss_n) - float(loss_f))
+        bit = torch.equal(loss_n, loss_f) and all(torch.equal(a, b) for a, b in zip(p_n, p_f))
+        if p_diff > 1e-6 * scale or l_diff > 1e-6 * abs(float(loss_n)):
+            raise AssertionError(f"{cfg.name}: remat full vs none: params differ by "
+                                 f"{p_diff:.3e} (max |param| {scale:.3e}), losses by {l_diff:.3e}")
+        what[1] += (f" ({med['full'] / med['none']:.3f}x the time, "
+                    f"{peak['full'] / peak['none']:.3f}x the memory)")
+        what.append(f"full vs none: params within {p_diff:.3e} (max |param| {scale:.3f}), "
+                    f"loss within {l_diff:.3e}, {'bit-identical' if bit else 'not bit-identical'}")
     say("train_full", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters, 1 x {TRAIN_SEQ} "
-        f"tokens, f32, loss {float(loss_n):.6f}: remat none median {med['none'] * 1e3:.1f} ms "
-        f"a step, peak {peak['none'] / 2**30:.2f} GiB above the state held; remat full "
-        f"{med['full'] * 1e3:.1f} ms ({med['full'] / med['none']:.3f}x), peak "
-        f"{peak['full'] / 2**30:.2f} GiB ({peak['full'] / peak['none']:.3f}x); full vs none: "
-        f"params within {p_diff:.3e} (max |param| {scale:.3f}), loss within {l_diff:.3e}, "
-        f"{'bit-identical' if bit else 'not bit-identical'}; two calls under each policy "
-        f"bit-identical; kernel launches {launches}; {card}")
-    del params, opt, first, p_n, p_f
+        f"tokens, f32, loss {float(loss_0):.6f}: " + "; ".join(what) + "; two calls under "
+        f"each policy bit-identical; kernel launches {launches}; {card}")
+    del params, opt, first, p_0
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def _prefill_flops(cfg, seq: int) -> int:
-    """Operations of one dense prefill at batch 1: the block products, every
-    (query, key) pair of attention (the plain path forms the masked ones
-    too), and the head on the last position."""
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+def _attn_flops(cfg, seq: int, d_ff: int) -> int:
+    """An attention block with its MLP: the products, and every (query,
+    key) pair of attention (the plain path forms the masked ones too)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    per_layer = (2 * seq * d * hd * (2 * nq + 2 * nkv) + 2 * seq * 3 * d * f
-                 + 2 * 2 * seq * seq * nq * hd)
-    return cfg.num_layers * per_layer + 2 * d * cfg.vocab_padded
+    return (2 * seq * d * hd * (2 * nq + 2 * nkv) + 2 * 2 * seq * seq * nq * hd
+            + 2 * seq * 3 * d * d_ff)
 
 
-def phase_prefill(card: str) -> dict:
-    """make_prefill_step on the three dense models at full width, one at a
-    time. Returns the kernels' launches."""
+def _mla_flops(cfg, seq: int) -> int:
+    """MLA: the q and kv projections, the expansion of the latent into
+    k_nope and v at every position, both logit terms and P V."""
+    m, d, nq = cfg.mla, cfg.d_model, cfg.num_heads
+    qk, R = m.qk_nope_head_dim + m.qk_rope_head_dim, m.kv_lora_rank
+    q = (2 * seq * d * m.q_lora_rank + 2 * seq * m.q_lora_rank * nq * qk if m.q_lora_rank
+         else 2 * seq * d * nq * qk)
+    return (q + 2 * seq * d * (R + m.qk_rope_head_dim)
+            + 2 * seq * R * nq * (m.qk_nope_head_dim + m.v_head_dim)
+            + 2 * seq * seq * nq * (qk + m.v_head_dim) + 2 * seq * nq * m.v_head_dim * d)
+
+
+def _moe_flops(cfg, seq: int) -> int:
+    """The reference's GShard dispatch as ``layers.moe`` runs it: the router,
+    the one-hot dispatch and combine products over (t, k, E, C), the
+    (E, C, D) gather and scatter products over every token, the experts on
+    their C slots, and the shared MLP."""
+    mo, d = cfg.moe, cfg.d_model
+    E, k = mo.num_experts, mo.top_k
+    tg = min(2048, seq)
+    T = seq
+    C = math.ceil(tg * k / E * mo.capacity_factor)
+    groups = T // tg
+    return (2 * T * d * E + 2 * 2 * T * k * E * C + T * k * E + 2 * 2 * T * E * C * d
+            + groups * 3 * 2 * E * C * d * mo.d_expert
+            + 2 * T * 3 * d * mo.num_shared * mo.d_expert)
+
+
+def _ssm_flops(cfg, seq: int) -> int:
+    """A Mamba-2 block as ``models.ssm`` runs it: the projections, the
+    depthwise conv, and the chunked SSD's four products (C B within a
+    chunk, the masked products with x, the chunk states, and the carried
+    states' contribution)."""
+    s, d = cfg.ssm, cfg.d_model
+    di, nh, gn = s.d_inner(d), s.n_heads(d), s.n_groups * s.d_state
+    L = min(s.chunk_size, seq)
+    return (2 * seq * d * (2 * di + 2 * gn + nh) + 2 * seq * s.d_conv * (di + 2 * gn)
+            + 2 * seq * L * (gn + nh * s.head_dim) + 2 * 2 * seq * nh * s.head_dim * s.d_state
+            + 2 * seq * di * d)
+
+
+def _prefill_flops(cfg, seq: int) -> int:
+    """Operations of one prefill at batch 1, by the reference's algorithm
+    in each family, and the head on the last position."""
+    head = 2 * cfg.d_model * cfg.vocab_padded
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.hybrid_attn_period
+        return groups * _attn_flops(cfg, seq, cfg.d_ff) + cfg.num_layers * _ssm_flops(cfg, seq) + head
+    if cfg.moe is None:
+        return cfg.num_layers * _attn_flops(cfg, seq, cfg.d_ff) + head
+    dense, n_moe = cfg.moe.first_k_dense, cfg.num_layers - cfg.moe.first_k_dense
+    if cfg.mla is not None:
+        attn = _mla_flops(cfg, seq)
+        dense_mlp = 2 * seq * 3 * cfg.d_model * cfg.moe.dense_d_ff
+    else:
+        attn = _attn_flops(cfg, seq, 0)
+        dense_mlp = 2 * seq * 3 * cfg.d_model * cfg.d_ff
+    return dense * (attn + dense_mlp) + n_moe * (attn + _moe_flops(cfg, seq)) + head
+
+
+def phase_prefill(card: str, names) -> dict:
+    """make_prefill_step on each model at full width, one at a time.
+    Returns the kernels' launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import make_prefill_step
     from repro_torch.models import forward, init_params, param_count, param_descs
 
     ops.reset_launch_counts()
-    for name in ("yi_6b", "glm4_9b", "gemma3_4b"):
+    for name in names:
         cfg = get_config(name)
         gc.collect()
         torch.cuda.empty_cache()
@@ -892,7 +1021,7 @@ def phase_prefill(card: str) -> dict:
         ms = median_ms(lambda: step(params, batch), 3)
         last = step(params, batch)
         with torch.no_grad():
-            want = forward(cfg, params, batch["tokens"])[:, -1:]
+            want = forward(cfg, params, batch["tokens"])[0][:, -1:]
         if last.shape != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(last).all()):
             raise AssertionError(f"{cfg.name} prefill logits {tuple(last.shape)}")
         rel = float((last - want).abs().max() / want.abs().max())
@@ -901,12 +1030,20 @@ def phase_prefill(card: str) -> dict:
                                  f"last row by {rel:.3e} of max |logit|")
         flops = _prefill_flops(cfg, PREFILL_SEQ)
         tflops = flops / ms / 1e9
-        window = ""
+        plan = ""
         if cfg.global_period:
             n_local = cfg.num_layers - cfg.num_layers // cfg.global_period
-            window = f", window {cfg.sliding_window} on {n_local} of {cfg.num_layers} layers"
+            plan = f", window {cfg.sliding_window} on {n_local} of {cfg.num_layers} layers"
+        elif cfg.moe is not None:
+            n_moe = cfg.num_layers - cfg.moe.first_k_dense
+            share = n_moe * _moe_flops(cfg, PREFILL_SEQ) / flops
+            plan = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} on {n_moe} layers "
+                    f"(the MoE layers {share:.1%} of the operations)")
+        elif cfg.family == "hybrid":
+            plan = (f", the shared attention block at {cfg.num_layers // cfg.hybrid_attn_period}"
+                    f" sites among {cfg.num_layers} SSM layers")
         say("prefill", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters "
-            f"({n_params * 4 / 1e9:.2f} GB f32){window}, 1 x {PREFILL_SEQ} tokens: median "
+            f"({n_params * 4 / 1e9:.2f} GB f32){plan}, 1 x {PREFILL_SEQ} tokens: median "
             f"{ms:.2f} ms of 3 warmed calls, {flops / 1e12:.3f} TFLOP, {tflops:.2f} TFLOP/s "
             f"({tflops / (F32_OPS_PER_S / 1e12):.1%} of the 67 TFLOP/s f32 peak, TF32 off); "
             f"last_only logits == the full forward's last row within {rel:.3e} of max |logit|; "
@@ -919,40 +1056,86 @@ def phase_prefill(card: str) -> dict:
 
 # --------------------------------------------------------------------------- #
 #: teacher-forced decode positions held against one forward: a multiple of
-#: the SSD chunk for the ssm family (ssd_chunked refuses other lengths)
-SERVE_T = {"dense": 64, "ssm": 256}
+#: the SSD chunk for the families with SSM blocks (ssd_chunked refuses
+#: other lengths). The hybrid's forward is held with its SSD chunk set to
+#: 64 (_held): the chunk is how the forward splits the sequence, not a
+#: width of the model, and 64 positions instead of zamba2's chunk of 256
+#: keep the phase within the script's time
+SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64}
 #: decode logits against the forward's, relative to max |logit|. gemma-2b's
 #: random weights make its attention a hard argmax (the init takes the
 #: fan-in of wq (D, N, H) as N, so the attention logits have a std near
 #: 700), and 18 layers amplify f32 rounding to O(1): on an H100 its f32
 #: forward differs from a float64 forward by 0.83 of max |logit| (PERF.md,
 #: examples/torch_decode_drift.py).
-#: So the dense check runs in float64, where the same amplification leaves
-#: the two about 4e-7 apart. mamba2-370m runs in f32; its forward runs the
-#: f32 chunked SSD, whose drift through 48 layers sets SSM_TOL.
-SERVE_TOL = {"dense": 1e-4, "ssm": SSM_TOL}
-SERVE_CHECK_DTYPE = {"dense": torch.float64, "ssm": torch.float32}
+#: So the checks of the families with attention run in float64, where the
+#: same amplification leaves the two about 4e-7 apart. mamba2-370m runs in
+#: f32; its forward runs the f32 chunked SSD, whose drift through 48 layers
+#: sets SSM_TOL.
+SERVE_TOL = {"dense": 1e-4, "moe": 1e-4, "ssm": SSM_TOL, "hybrid": 1e-4}
+SERVE_CHECK_DTYPE = {"dense": torch.float64, "moe": torch.float64, "ssm": torch.float32,
+                     "hybrid": torch.float64}
+#: models whose float64 check is held at a cut of their plan, full width:
+#: name -> (groups, layers, or MoE layers after the dense ones; whether the
+#: float64 decode also runs at full depth, its gap printed, not held).
 #: gemma3-4b's random model (wq's fan-in taken as its 8 heads: layer-0
 #: attention logits of std 886) is chaotic even in float64 over 34 layers:
 #: on an H100 its float64 decode and forward part by 1.7e-13 of max |hidden|
 #: after layer 0, 4.0e-7 after 12 layers and 5.5e-2 after 34, growing layer
-#: by layer (examples/torch_decode_drift.py --arch gemma3-4b --layers 34).
-#: So the float64 check is held at the model's first two groups and its
-#: 4-layer tail (16 layers: every stack of the plan), full width, and the
-#: 34-layer gap is printed
-SERVE_CHECK_GROUPS = {"gemma3-4b": 2}
+#: by layer (examples/torch_decode_drift.py --arch gemma3-4b --layers 34),
+#: so it is held at its first two groups and its 4-layer tail (16 layers:
+#: every stack of the plan). granite-moe-3b-a800m's is too (layer-0
+#: attention logits of std 105): its float64 decode and forward part by
+#: 2.4e-14 of max |hidden| after layer 0, 1.7e-5 after 16 and 2.9e-2 of max
+#: |logit| after 32 (examples/torch_decode_drift.py --arch
+#: granite-moe-3b-a800m), so it is held at its first 16 layers.
+#: deepseek-v2-lite-16b's float64 weights (126 GB) do not fit the card: it
+#: is held at its dense layer and first four MoE layers (22.7 GB in float64)
+SERVE_CHECK_CUT = {"gemma3-4b": (2, True), "granite-moe-3b-a800m": (16, False),
+                   "deepseek-v2-lite-16b": (4, False)}
 
 
-def _cut_groups(cfg, params, groups: int):
-    """The config and params of a gemma3 plan cut to its first ``groups``
-    groups and its whole tail: views of the group stacks."""
+def _held(cfg):
+    """The config a decode is held against. MoE: capacity factor E / k, so
+    the experts take every (token, slot): a forward over T tokens drops a
+    slot past its expert's capacity ceil(T k / E x factor), which one
+    decoded token (capacity 1, k distinct experts) never meets. The hybrid:
+    its SSD chunk set to SERVE_T (see there). The decode itself is the same
+    under either config; the other families are returned as they are."""
+    if cfg.moe is not None:
+        mo = cfg.moe
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            mo, capacity_factor=mo.num_experts / mo.top_k))
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=SERVE_T["hybrid"]))
+    return cfg
+
+
+def _cut(cfg, params, n: int):
+    """The config and params of a plan cut to its first ``n`` groups and its
+    whole tail (gemma3), to its dense layers and first ``n`` MoE layers
+    (deepseek), or to its first ``n`` layers (the flat plan). The cut
+    stacks are copies, so the full model can be freed."""
     from repro_torch.tree import tree_map
 
-    tail = cfg.num_layers % cfg.global_period
     cut = dict(params)
-    for k in ("group_locals", "group_global"):
-        cut[k] = tree_map(lambda t: t[:groups], params[k])
-    return dataclasses.replace(cfg, num_layers=groups * cfg.global_period + tail), cut
+    if cfg.global_period:
+        tail = cfg.num_layers % cfg.global_period
+        for k in ("group_locals", "group_global"):
+            cut[k] = tree_map(lambda t: t[:n].clone(), params[k])
+        return dataclasses.replace(cfg, num_layers=n * cfg.global_period + tail), cut
+    key, dense = ("moe_layers", cfg.moe.first_k_dense) if "moe_layers" in params else ("layers", 0)
+    cut[key] = tree_map(lambda t: t[:n].clone(), params[key])
+    return dataclasses.replace(cfg, num_layers=dense + n), cut
+
+
+def _expert_params(cfg) -> int:
+    """Parameters of the routed experts (0 without MoE)."""
+    if cfg.moe is None:
+        return 0
+    mo = cfg.moe
+    return (cfg.num_layers - mo.first_k_dense) * 3 * mo.num_experts * cfg.d_model * mo.d_expert
 
 
 def _timed_restores(serve) -> tuple:
@@ -973,8 +1156,9 @@ def _timed_restores(serve) -> tuple:
 
 
 def _serve_full(cfg, card: str) -> None:
-    """Teacher-forced decode against forward, decode timing and idle share,
-    then a failure-free serving run against one with a kill, at full width."""
+    """Decode timing and idle share, a failure-free serving run against one
+    with a kill, then teacher-forced decode against forward, at full width
+    (last: its float64 copy may need the memory the f32 model holds)."""
     from repro_torch.models import (cache_descs, decode_step, forward, init_params,
                                     param_count, param_descs, zeros_from_descs)
     from repro_torch.train import run_speculative_serving, serve
@@ -987,11 +1171,9 @@ def _serve_full(cfg, card: str) -> None:
     n_params = param_count(param_descs(cfg))
     T, tol = SERVE_T[cfg.family], SERVE_TOL[cfg.family]
     tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device="cuda")
+    held = _held(cfg)
 
-    def fresh_cache(max_len, dtype=torch.float32):
-        return zeros_from_descs(cache_descs(cfg, 1, max_len), dtype, "cuda")
-
-    def teacher_forced(p, dtype, c=cfg):
+    def teacher_forced(p, dtype, c=held):
         """decode_step over the T tokens: the logits (1, T, V) and the ms of
         each step, which ends in the host's argmax as a serving step does."""
         cache = zeros_from_descs(cache_descs(c, 1, T), dtype, "cuda")
@@ -1009,37 +1191,18 @@ def _serve_full(cfg, card: str) -> None:
             raise AssertionError(f"decode logits {tuple(got.shape)}, forward {tuple(want.shape)}")
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
-    check = SERVE_CHECK_DTYPE[cfg.family]
     with torch.no_grad():
         got, step_ms = teacher_forced(params, torch.float32)
-        want = forward(cfg, params, tokens)
+        want = forward(held, params, tokens)[0]
         rel32 = rel_diff(got, want)
-        note = ""
-        if check != torch.float32:
-            p64 = tree_map(lambda t: t.to(check), params)
-            got64, _ = teacher_forced(p64, check)
-            want64 = forward(cfg, p64, tokens)
-            rel = rel_diff(got64, want64)
-            note = (f" in {str(check).removeprefix('torch.')} (in f32 the two differ by {rel32:.3e}, "
-                    f"and the f32 forward from a float64 one by {rel_diff(want, want64):.3e}: "
-                    f"rounding amplified by the random model, not held)")
-            groups = SERVE_CHECK_GROUPS.get(cfg.name)
-            if groups:
-                c_cfg, c_p64 = _cut_groups(cfg, p64, groups)
-                rel_all, rel = rel, rel_diff(teacher_forced(c_p64, check, c_cfg)[0],
-                                             forward(c_cfg, c_p64, tokens))
-                note += (f"; held at its first {groups} groups and its tail ({c_cfg.num_layers} "
-                         f"layers), full width: at all {cfg.num_layers} the float64 decode and "
-                         f"forward differ by {rel_all:.3e}, rounding amplified through the "
-                         f"layers, not held")
-            del p64, got64, want64
-        else:
-            rel = rel32
-        if rel > tol:
-            raise AssertionError(f"{cfg.name}: teacher-forced decode differs from forward by "
-                                 f"{rel:.3e} of max |logit| (tolerance {tol})")
-        del got, want
-        cache = fresh_cache(64)
+        moe_note = ""
+        if cfg.moe is not None:
+            moe_note = (f"; the forward at the published capacity factor "
+                        f"{cfg.moe.capacity_factor}, which drops (token, slot)s past an "
+                        f"expert's capacity, differs from the f32 decode by "
+                        f"{rel_diff(got, forward(cfg, params, tokens)[0]):.3e}")
+        del got
+        cache = zeros_from_descs(cache_descs(cfg, 1, 64), torch.float32, "cuda")
 
         def eight_steps():
             for i in range(8):
@@ -1047,18 +1210,22 @@ def _serve_full(cfg, card: str) -> None:
                 int(torch.argmax(lg[0, 0, : cfg.vocab_size]))
 
         events = profile(eight_steps)
+        del cache, eight_steps
     kernels, host = by_name(events, device=True), by_name(events, device=False)
     ms = float(np.median(step_ms[8:]))  # the first steps warm up cuBLAS and the allocator
     dev_ms = sum(m for m, _ in kernels.values()) / 8
     launches = sum(n for _, n in kernels.values()) / 8
     b_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
-    say("serve", f"{cfg.name} x{cfg.num_layers} layers, {n_params:,} parameters "
-        f"({n_params * 4 / 1e9:.2f} GB f32), batch 1: teacher-forced decode_step over {T} tokens "
-        f"== one forward within {rel:.3e} of max |logit| (tolerance {tol}){note}; {card}")
+    active = ""
+    if cfg.moe is not None:
+        a_params = n_params - _expert_params(cfg) * (1 - cfg.moe.top_k / cfg.moe.num_experts)
+        active = (f"; the active-expert bound (top-{cfg.moe.top_k} of {cfg.moe.num_experts} "
+                  f"experts, {a_params:,.0f} parameters) {a_params * 4 / HBM_BYTES_PER_S * 1e3:.3f}"
+                  f" ms, which the one-hot dispatch does not reach: it reads every expert")
     say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{T - 1} "
         f"({1e3 / ms:.1f} tokens/s); batch-1 HBM bound {b_ms:.3f} ms (weight bytes over 3.35 "
-        f"TB/s), {b_ms / ms:.1%} of it; 8 warmed steps under torch.profiler: device time "
-        f"{dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
+        f"TB/s), {b_ms / ms:.1%} of it{active}; 8 warmed steps under torch.profiler: device "
+        f"time {dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
         f"{1 - dev_ms / ms:.1%} of the median step; {card}")
     for what, table in (("device time per step by kernel", kernels),
                         ("host self time per step by operator (profiled)", host)):
@@ -1098,7 +1265,53 @@ def _serve_full(cfg, card: str) -> None:
         f"({16 / t_base:.1f} tokens/s end to end); kill_at=8: rollbacks 1, the same 16 durable "
         f"tokens {base.durable_tokens}; its Restore replayed {n_rep} tokens in {t_rep:.4f} s; "
         f"a replay of all 16 takes {t_16:.4f} s; {card}")
-    del params
+    del base, killed
+    gc.collect()
+
+    check = SERVE_CHECK_DTYPE[cfg.family]
+    cut, full64 = SERVE_CHECK_CUT.get(cfg.name, (None, True))
+    note = ""
+    with torch.no_grad():
+        if check == torch.float32:
+            rel = rel32
+        else:
+            if full64:
+                p64 = tree_map(lambda t: t.to(check), params)
+                want64 = forward(held, p64, tokens)[0]
+                rel = rel_all = rel_diff(teacher_forced(p64, check)[0], want64)
+                note = (f" (in f32 the two differ by {rel32:.3e}, and the f32 forward from a "
+                        f"float64 one by {rel_diff(want, want64):.3e}: rounding amplified by the "
+                        f"random model, not held)")
+                del p64, want64
+            else:
+                note = (f" (in f32 at all {cfg.num_layers} layers the two differ by {rel32:.3e}; "
+                        f"float64 at all {cfg.num_layers} not run: see SERVE_CHECK_CUT)")
+            if cut is not None:
+                c_cfg, c_p = _cut(held, params, cut)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+                c_p64 = tree_map(lambda t: t.to(check), c_p)
+                del c_p
+                rel = rel_diff(teacher_forced(c_p64, check, c_cfg)[0],
+                               forward(c_cfg, c_p64, tokens)[0])
+                what = (f"its first {cut} groups and its tail" if cfg.global_period
+                        else f"its dense layer and first {cut} MoE layers"
+                        if "moe_layers" in c_p64 else f"its first {cut} layers")
+                note += (f"; held at {what} ({c_cfg.num_layers} layers), full width"
+                         + (f": at all {cfg.num_layers} the float64 decode and forward differ "
+                            f"by {rel_all:.3e}, rounding amplified through the layers, not held"
+                            if full64 else ""))
+                del c_p64
+            note = f" in {str(check).removeprefix('torch.')}" + note
+    if rel > tol:
+        raise AssertionError(f"{cfg.name}: teacher-forced decode differs from forward by "
+                             f"{rel:.3e} of max |logit| (tolerance {tol}){note}")
+    say("serve", f"{cfg.name} x{cfg.num_layers} layers, {n_params:,} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB f32), batch 1: teacher-forced decode_step over {T} tokens "
+        f"== one forward within {rel:.3e} of max |logit| (tolerance {tol}){note}{moe_note}; "
+        f"{card}")
+    del want
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1143,6 +1356,14 @@ def _margins(cfg, params, tokens: list) -> list:
     return out
 
 
+#: the models served at full width, and the smoke configs served on the card
+#: and on the CPU (every ported architecture)
+SERVE_FULL = ("gemma_2b", "gemma3_4b", "mamba2_370m", "granite_moe_3b_a800m",
+              "deepseek_v2_lite_16b", "zamba2_1p2b")
+ARCHS = ("yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "zamba2_1p2b", "granite_moe_3b_a800m",
+         "deepseek_v2_lite_16b", "mamba2_370m")
+
+
 def phase_serve(card: str) -> dict:
     """The serving path at full width and at the smoke configs. Returns every
     kernel's launches on it (all 0, checked)."""
@@ -1162,12 +1383,12 @@ def phase_serve(card: str) -> dict:
     say("serve", f"host cost of one launch of a one-element add_: "
         f"{(time.perf_counter() - t0) * 1e3:.2f} us (mean of 1000); {card}")
     ops.reset_launch_counts()
-    for name in ("gemma_2b", "gemma3_4b", "mamba2_370m"):
+    for name in SERVE_FULL:
         _serve_full(get_config(name), card)
     root = RUN_DIR / "serve_smoke"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        for name in ("yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "mamba2_370m"):
+        for name in ARCHS:
             cfg = get_config(name, smoke=True)
             # gemma3 smoke: 24 tokens wrap its window-8 ring caches twice
             n = 24 if cfg.global_period else 16
@@ -1245,8 +1466,11 @@ def main() -> int:
 
     phase_loop(get_config("gemma_2b", smoke=True))
     paths["loop_mamba2_codec"] = phase_loop_ssm(get_config("mamba2_370m", smoke=True))
+    paths["loop_moe_mla_hybrid"] = phase_loop_families(NEW_FAMILIES)
     paths["train_full"] = phase_train_full(mamba, card)
-    paths["prefill"] = phase_prefill(card)
+    granite = dataclasses.replace(get_config("granite_moe_3b_a800m"), num_layers=TRAIN_MOE_LAYERS)
+    paths["train_full_moe"] = phase_train_full(granite, card, policies=("full",))
+    paths["prefill"] = phase_prefill(card, ("yi_6b", "glm4_9b", "gemma3_4b") + NEW_FAMILIES)
     paths["serve"] = phase_serve(card)
     # every count was set to 0 just before each path and read just after it;
     # ``launches`` is each kernel's count on the path it was ported for

@@ -1,13 +1,18 @@
-"""How far a dense model's teacher-forced decode drifts from its forward, in
-f32 and in float64, with the repo's seeded random weights (gemma-2b by
-default; ``--arch gemma3-4b`` for the grouped local/global plan).
+"""How far a model's teacher-forced decode drifts from its forward, in f32
+and in float64, with the repo's seeded random weights (gemma-2b by default;
+``--arch gemma3-4b`` for the grouped local/global plan, ``granite-moe-3b-a800m``
+for MoE, ``deepseek-v2-lite-16b`` for MLA with MoE, ``zamba2-1.2b`` for the
+hybrid; any architecture with attention).
 
 ``init_params`` takes the fan-in of a 3-D weight as ``shape[-2]``: 8 for
-``wq`` (2048, 8, 256) of gemma-2b and (2560, 8, 256) of gemma3-4b. The
-random model's attention logits are then far
-wider than a trained model's, softmax is close to a hard argmax, and the
-layers amplify rounding. This script prints, relative to max |logit| (or to
-max |hidden| per layer):
+``wq`` (2048, 8, 256) of gemma-2b and (2560, 8, 256) of gemma3-4b, the head
+count for the others (``w_q`` of MLA too). The random model's attention
+logits are then far wider than a trained model's, softmax is close to a
+hard argmax, and the layers amplify rounding. A MoE model is compared at a
+capacity that drops no token (capacity factor E / k): a forward over T
+tokens drops a (token, slot) past its expert's capacity, which one decoded
+token never meets, so at the published factor the two differ by design.
+This script prints, relative to max |logit| (or to max |hidden| per layer):
   the std of layer 0's attention logits;
   f32 decode against the f32 forward, and the f32 forward against a float64
   forward (what ``chip_smoke.py``'s serve phase prints and does not hold);
@@ -15,6 +20,8 @@ max |hidden| per layer):
 
     PYTHONPATH=src python examples/torch_decode_drift.py --device cuda
     PYTHONPATH=src python examples/torch_decode_drift.py --device cuda --arch gemma3-4b --layers 34
+    PYTHONPATH=src python examples/torch_decode_drift.py --device cuda --arch deepseek-v2-lite-16b --layers 5
+    PYTHONPATH=src python examples/torch_decode_drift.py --device cuda --arch zamba2-1.2b --tokens 256
     PYTHONPATH=src python examples/torch_decode_drift.py --device cpu --layers 8 --vocab 4096 --tokens 16
 """
 from __future__ import annotations
@@ -44,13 +51,13 @@ def hidden_states(cfg, params, tokens, decode: bool) -> tuple:
 
     def recorded(*args, **kw):
         out = block(*args, **kw)
-        seen.append((args[1], out))
+        seen.append((args[1], out[0]))
         return out
 
     tr._block_apply = recorded
     try:
         if not decode:
-            logits = tr.forward(cfg, params, tokens)
+            logits = tr.forward(cfg, params, tokens)[0]
             return [x for _, x in seen] + [logits], seen[0][0]
         cache = zeros_from_descs(cache_descs(cfg, 1, tokens.shape[1]), params["embed"].dtype,
                                  tokens.device)
@@ -64,6 +71,29 @@ def hidden_states(cfg, params, tokens, decode: bool) -> tuple:
         tr._block_apply = block
 
 
+def layer0_logits(cfg, lp, h, tokens: int):
+    """The attention logits of the model's first attention block on ``h``."""
+    pos = torch.arange(tokens, device=h.device)[None, None]
+    a = lp["attn"]
+    if "wq" in a:
+        q = rope(torch.einsum("bsd,dnh->bnsh", h, a["wq"]), pos, cfg.rope_theta)
+        k = rope(torch.einsum("bsd,dnh->bnsh", h, a["wk"]), pos, cfg.rope_theta)
+        if k.shape[1] != q.shape[1]:
+            k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+        return torch.einsum("bnsh,bnth->bnst", q, k) / np.sqrt(cfg.resolved_head_dim)
+    m = cfg.mla  # MLA: the nope and rope terms
+    q = (torch.einsum("bsd,dr,rnh->bnsh", h, a["w_dq"], a["w_uq"]) if m.q_lora_rank
+         else torch.einsum("bsd,dnh->bnsh", h, a["w_q"]))
+    q_nope, q_pe = q[..., : m.qk_nope_head_dim], rope(q[..., m.qk_nope_head_dim:], pos,
+                                                       cfg.rope_theta)
+    dkv = torch.einsum("bsd,dr->bsr", h, a["w_dkv"])
+    k_nope = torch.einsum("btr,rnh->bnth", dkv[..., : m.kv_lora_rank], a["w_uk"])
+    k_pe = rope(dkv[..., m.kv_lora_rank:], pos[0], cfg.rope_theta)
+    logits = (torch.einsum("bnsh,bnth->bnst", q_nope, k_nope)
+              + torch.einsum("bnsh,bth->bnst", q_pe, k_pe))
+    return logits / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
 def gap(a, b) -> float:
     return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
@@ -71,33 +101,36 @@ def gap(a, b) -> float:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="default: the CUDA card")
-    ap.add_argument("--arch", default="gemma-2b", help="gemma-2b or gemma3-4b")
-    ap.add_argument("--layers", type=int, default=18)
-    ap.add_argument("--tokens", type=int, default=64)
-    ap.add_argument("--vocab", type=int, default=None, help="default: the published 256000")
+    ap.add_argument("--arch", default="gemma-2b", help="an architecture with attention")
+    ap.add_argument("--layers", type=int, default=None, help="default: the published depth")
+    ap.add_argument("--tokens", type=int, default=None,
+                    help="default: 64, or the SSD chunk (256) for the hybrid")
+    ap.add_argument("--vocab", type=int, default=None, help="default: the published one")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
     base = get_config(args.arch)
-    cfg = dataclasses.replace(base, num_layers=args.layers, vocab_size=args.vocab or base.vocab_size)
+    cfg = dataclasses.replace(base, num_layers=args.layers or base.num_layers,
+                              vocab_size=args.vocab or base.vocab_size)
+    if cfg.moe is not None:  # a capacity no expert overflows (see above)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    n = args.tokens or (cfg.ssm.chunk_size if cfg.ssm is not None else 64)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     p32 = init_params(param_descs(cfg), gen, dtype=torch.float32, device=dev)
-    tokens = torch.randint(0, cfg.vocab_size, (1, args.tokens), generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen, device=dev)
     with torch.no_grad():
         fwd32, lp0 = hidden_states(cfg, p32, tokens, decode=False)
         dec32, _ = hidden_states(cfg, p32, tokens, decode=True)
         h = rms_norm(tr._embed(cfg, p32, tokens), lp0["ln1"], cfg.norm_eps)
-        pos = torch.arange(args.tokens, device=dev)[None, None]
-        q = rope(torch.einsum("bsd,dnh->bnsh", h, lp0["attn"]["wq"]), pos, cfg.rope_theta)
-        k = rope(torch.einsum("bsd,dnh->bnsh", h, lp0["attn"]["wk"]), pos, cfg.rope_theta)
-        logits0 = torch.einsum("bnsh,bmth->bnst", q, k) / np.sqrt(cfg.resolved_head_dim)
+        logits0 = layer0_logits(cfg, lp0, h, n)
         p64 = tree_map(lambda t: t.double(), p32)
         del p32, lp0
         fwd64, _ = hidden_states(cfg, p64, tokens, decode=False)
         dec64, _ = hidden_states(cfg, p64, tokens, decode=True)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{cfg.name} x{cfg.num_layers}, vocab {cfg.vocab_size}, {args.tokens} tokens, seed "
+    print(f"{cfg.name} x{cfg.num_layers}, vocab {cfg.vocab_size}, {n} tokens, seed "
           f"{args.seed}, on {name}")
     print(f"layer 0 attention logits: std {float(logits0.std()):.1f}, max |.| "
           f"{float(logits0.abs().max()):.1f}")

@@ -10,9 +10,8 @@ logits. This script measures, relative to max |logit| of a float64
   ssd_impl every mixer on ``ops.ssd_model_impl`` in f32: the CUDA kernel on
            a card, the sequential recurrence ``ref.ssd_ref`` on the CPU
 and the two against each other (what ``chip_smoke.py``'s ssm phase holds to
-its tolerance). The float64 run switches ``models/ssm.py``'s working type to
-float64; ``rms_norm`` still normalises in f32, which bounds how exact the
-reference is.
+its tolerance). The float64 run is the same model with float64 weights:
+``models/ssm.py`` and ``rms_norm`` then work in float64 throughout.
 
     PYTHONPATH=src python examples/torch_ssd_drift.py --device cpu --batch 1 --seq 512
     PYTHONPATH=src python examples/torch_ssd_drift.py --device cuda --batch 4 --seq 2048
@@ -30,8 +29,8 @@ sys.path.insert(0, "src")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import apply_head, forward_ssm, init_params, param_descs  # noqa: E402
-from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.ssm import mamba2_mixer  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
 
@@ -39,7 +38,7 @@ def kernel_route(cfg, params, tokens):
     x = params["embed"][tokens]
     for i in range(cfg.num_layers):
         lp = tree_map(lambda w: w[i], params["layers"])
-        out, _ = ssm_mod.mamba2_mixer(lp["mixer"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+        out, _ = mamba2_mixer(lp["mixer"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                       ssd_impl=ops.ssd_model_impl)
         x = x + out
     return apply_head(cfg, params, x)
@@ -64,14 +63,9 @@ def main() -> None:
                            device=args.device)
     with torch.no_grad():
         t0 = time.perf_counter()
-        chunked = forward_ssm(cfg, params, tokens)
+        chunked = forward_ssm(cfg, params, tokens)[0]
         routed = kernel_route(cfg, params, tokens)
-        f32 = ssm_mod.F32
-        ssm_mod.F32 = torch.float64
-        try:
-            truth = forward_ssm(cfg, tree_map(lambda w: w.double(), params), tokens)
-        finally:
-            ssm_mod.F32 = f32
+        truth = forward_ssm(cfg, tree_map(lambda w: w.double(), params), tokens)[0]
     top = truth.abs().max()
     name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     print(f"mamba2-370m x{cfg.num_layers}, batch {args.batch} x {args.seq}, seed {args.seed}, "

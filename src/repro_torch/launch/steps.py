@@ -1,7 +1,7 @@
 """Step-function builders (port of ``repro/launch/steps.py``).
 
-``train_step`` is one optimizer step: forward, mean next-token loss,
-gradients by autograd, then AdamW. ``prefill_step`` runs the full-sequence
+``train_step`` is one optimizer step: forward, mean next-token loss plus
+the forward's MoE aux loss, gradients by autograd, then AdamW. ``prefill_step`` runs the full-sequence
 forward and emits the last token's logits. ``serve_step`` decodes one token
 against an explicit KV/state cache, updated in place. The tuning flags
 ``loss_chunk`` and ``microbatch`` are read from ``models.tuning`` when a
@@ -48,11 +48,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
         def value_and_grad(tok, ext):
             with torch.enable_grad():
-                out = forward(cfg, tree, tok[:, :-1], extras=ext, remat=remat)
+                out, _, aux = forward(cfg, tree, tok[:, :-1], extras=ext, remat=remat)
                 if tun.loss_chunk:
-                    loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], None, tun.loss_chunk)
+                    loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], aux, tun.loss_chunk)
                 else:
-                    loss = lm_loss(cfg, out, tok[:, 1:])
+                    loss = lm_loss(cfg, out, tok[:, 1:], aux)
                 grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), grads
 
@@ -87,7 +87,7 @@ def make_prefill_step(cfg: ModelConfig):
         tokens, extras = split_batch(batch)
         tokens = torch.as_tensor(tokens, device=_device(params))
         with torch.no_grad():
-            return forward(cfg, params, tokens, extras=extras, last_only=True)
+            return forward(cfg, params, tokens, extras=extras, last_only=True)[0]
 
     return prefill_step
 

@@ -7,7 +7,12 @@ is plain einsum, with GQA by repeating the kv heads (the reference's default
 path). Decode caches are ``(B, Smax, Nkv, H)`` linear or ring buffers. Under
 ``Tuning.decode_seq_constraint`` decode takes the reference's grouped
 "flash-decode" einsum instead, which reads the cache without repeating it.
-Not ported yet: the cross-attention source (ROADMAP.md section 1).
+MLA (DeepSeek-V2 multi-head latent attention) caches the compressed
+``(B, Smax, R)`` kv latent and the shared ``(B, Smax, P)`` rope key and
+expands them with the up-projections at every call, as the reference does.
+MoE is the reference's GShard one-hot einsum dispatch: deterministic, with
+no scatter in its forward or backward. Not ported yet: the cross-attention
+source (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -129,11 +134,7 @@ def attention(
     if cache is not None:
         smax = cache["k"].shape[1]
         idx = cache_index % smax if ring else cache_index
-        if not 0 <= idx <= smax - S:
-            raise ValueError(f"cache index {cache_index} does not fit {S} token(s) in a "
-                             f"cache of {smax}")
-        cache["k"][:, idx: idx + S] = k
-        cache["v"][:, idx: idx + S] = v
+        _write_cache(cache, idx, k=k, v=v)
         k, v = cache["k"], cache["v"]
         mask = _cache_mask(smax, cache_index, idx, window, ring, x.device)
     else:
@@ -163,6 +164,79 @@ def attention(
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
 
 
+def _write_cache(cache: Dict[str, torch.Tensor], idx: int, **new: torch.Tensor) -> None:
+    """Write this step's entries into each (B, Smax, ...) cache leaf at
+    ``idx``, in place; an index the write does not fit raises."""
+    for name, t in new.items():
+        smax, S = cache[name].shape[1], t.shape[1]
+        if not 0 <= idx <= smax - S:
+            raise ValueError(f"cache index {idx} does not fit {S} token(s) in a "
+                             f"cache of {smax}")
+        cache[name][:, idx: idx + S] = t
+
+
+def mla_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
+    m, d, nq = cfg.mla, cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    descs: Dict[str, PDesc] = {}
+    if m.q_lora_rank:
+        descs["w_dq"] = PDesc((d, m.q_lora_rank), ("embed", None))
+        descs["w_uq"] = PDesc((m.q_lora_rank, nq, qk), (None, "heads", None))
+    else:
+        descs["w_q"] = PDesc((d, nq, qk), ("embed", "heads", None))
+    descs["w_dkv"] = PDesc((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None))
+    descs["w_uk"] = PDesc((m.kv_lora_rank, nq, m.qk_nope_head_dim), (None, "heads", None))
+    descs["w_uv"] = PDesc((m.kv_lora_rank, nq, m.v_head_dim), (None, "heads", None))
+    descs["wo"] = PDesc((nq, m.v_head_dim, d), ("heads", None, "embed"))
+    return descs
+
+
+def mla_attention(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                     # (B, S, D)
+    cfg: ModelConfig,
+    positions: torch.Tensor,             # (B, S)
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"ckv": (B,Smax,R), "kpe": (B,Smax,P)}
+    cache_index: Optional[int] = None,   # write offset, a host int
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Causal MLA over ``positions``; returns ``(out, cache)``, the cache
+    written in place at ``cache_index`` as ``attention`` writes its own."""
+    m = cfg.mla
+    nope = m.qk_nope_head_dim
+    if m.q_lora_rank:
+        q = torch.einsum("bsd,dr->bsr", x, p["w_dq"])
+        q = torch.einsum("bsr,rnh->bsnh", q, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dnh->bsnh", x, p["w_q"])
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = rope(q_pe.transpose(1, 2), positions[:, None, :], cfg.rope_theta).transpose(1, 2)
+
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    ckv, k_pe = dkv[..., : m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    k_pe = rope(k_pe, positions, cfg.rope_theta)  # (B,S,P): shared across heads
+
+    if cache is not None:
+        _write_cache(cache, cache_index, ckv=ckv, kpe=k_pe)
+        ckv, k_pe = cache["ckv"], cache["kpe"]
+        valid = torch.arange(ckv.shape[1], dtype=torch.int32, device=x.device) <= cache_index
+        mask = valid[None, None, None, :]
+    else:
+        mask = positions[:, None, None, :] <= positions[:, None, :, None]  # (B,1,S,T)
+
+    # expand the compressed cache: k_nope (B,T,N,Hn), v (B,T,N,Hv)
+    k_nope = torch.einsum("btr,rnh->btnh", ckv, p["w_uk"])
+    val = torch.einsum("btr,rnh->btnh", ckv, p["w_uv"])
+
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    logits = (torch.einsum("bsnh,btnh->bnst", q_nope, k_nope)
+              + torch.einsum("bsnh,bth->bnst", q_pe, k_pe)).to(_at_least_f32(x.dtype)) * scale
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bnst,btnh->bsnh", probs, val)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
+
+
 def mlp_descs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, PDesc]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
@@ -178,3 +252,84 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, activation: str) -> torch.T
     gate = F.gelu(gate, approximate="tanh") if activation == "gelu" else F.silu(gate)
     h = gate * torch.einsum("bsd,df->bsf", x, p["wi_up"])
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: all zeros where ``idx`` lies outside [0, n)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
+    mo, d = cfg.moe, cfg.d_model
+    descs = {
+        "router": PDesc((d, mo.num_experts), ("embed", None), init="small"),
+        "w_gate": PDesc((mo.num_experts, d, mo.d_expert), ("experts", "embed", "expert_ffn")),
+        "w_up": PDesc((mo.num_experts, d, mo.d_expert), ("experts", "embed", "expert_ffn")),
+        "w_down": PDesc((mo.num_experts, mo.d_expert, d), ("experts", "expert_ffn", "embed")),
+    }
+    if mo.num_shared:
+        descs["shared"] = mlp_descs(cfg, d_ff=mo.num_shared * mo.d_expert)
+    return descs
+
+
+def route(probs: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the experts: (gates, ids), each (..., top_k),
+    the largest probabilities first and the lower expert id first among
+    equal ones (a stable sort; ``torch.topk`` orders ties as it likes). The
+    ids carry no gradient; the gates are ``probs`` contracted with the ids'
+    one-hot, the same values, whose backward is a product rather than the
+    scatter that ``topk``'s or ``gather``'s would be on the card."""
+    ids = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :top_k]
+    gates = torch.einsum("...e,...ke->...k", probs, _one_hot(ids, probs.shape[-1], probs.dtype))
+    return gates, ids
+
+
+def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+        group_size: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, D) -> (out, aux_loss). Token groups of ``group_size`` bound the
+    dispatch tensor to (G, Tg, E, C) (GShard section 3.2); each (token,
+    slot) takes its place in its expert in (t, k) order and is dropped past
+    the capacity C. ``Tuning.moe_impl`` "ep" runs this dispatch too (see
+    ``tuning.py``)."""
+    mo = cfg.moe
+    E, k = mo.num_experts, mo.top_k
+    B, S, D = x.shape
+    T = B * S
+    tg = min(group_size, T)
+    G = T // tg
+    xf = x.reshape(G, tg, D)
+
+    logits = torch.einsum("gtd,de->gte", xf, p["router"]).to(_at_least_f32(x.dtype))
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, ids = route(probs, k)                                    # (G,tg,k)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch): mean prob vs mean assignment per expert
+    onehot = _one_hot(ids, E, probs.dtype)                           # (G,tg,k,E)
+    me = probs.mean(dim=(0, 1))
+    ce = onehot.sum(2).mean(dim=(0, 1)) / k
+    aux = E * torch.sum(me * ce) * mo.router_aux_weight
+
+    capacity = int(np.ceil(tg * k / E * mo.capacity_factor))
+    # position of each (token, slot) within its expert, in (t, k) priority
+    # order: the exclusive cumsum, in integers (exact, as the reference's f32)
+    flat = _one_hot(ids, E, torch.int64).reshape(G, tg * k, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, tg, k, E)
+    pos_sel = torch.gather(pos, -1, ids[..., None])[..., 0]         # (G,tg,k), no gradient
+    keep = (pos_sel < capacity).to(x.dtype)
+    oh_e = _one_hot(ids, E, x.dtype) * keep[..., None]
+    oh_c = _one_hot(pos_sel, capacity, x.dtype)                      # (G,tg,k,C); overflow: 0
+    # contract k: never materialises the 5-D (t, k, E, C) tensor
+    dispatch = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", gate_w.to(x.dtype), oh_e, oh_c)
+
+    xin = torch.einsum("gtec,gtd->gecd", dispatch, xf)              # (G,E,C,D)
+    gate = torch.einsum("gecd,edf->gecf", xin, p["w_gate"])
+    gate = F.gelu(gate, approximate="tanh") if cfg.activation == "gelu" else F.silu(gate)
+    h = gate * torch.einsum("gecd,edf->gecf", xin, p["w_up"])
+    xout = torch.einsum("gecf,efd->gecd", h, p["w_down"])          # (G,E,C,D)
+    out = torch.einsum("gtec,gecd->gtd", combine, xout).reshape(B, S, D)
+
+    if mo.num_shared:
+        out = out + mlp(p["shared"], x, cfg.activation)
+    return out, aux

@@ -23,6 +23,12 @@ from .params import PDesc
 F32 = torch.float32
 
 
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The reference takes the decays, states and norms in f32; a float64
+    model keeps float64 there (as ``layers.rms_norm`` and ``layers._sdpa``)."""
+    return torch.promote_types(dtype, F32)
+
+
 def ssm_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
     s, d = cfg.ssm, cfg.d_model
     di = s.d_inner(d)
@@ -80,6 +86,7 @@ def ssd_chunked(
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
+    W = _wide(x.dtype)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
     nc = S // chunk
@@ -103,15 +110,15 @@ def ssd_chunked(
     Bh = torch.repeat_interleave(Br, rep, dim=3)                # (B,nc,L,H,N)
     Bx = torch.einsum(
         "bclhn,bclh,bclhp->bchpn",
-        Bh.to(F32),
-        (dtr * decay_to_end).to(F32),
-        xr.to(F32),
+        Bh.to(W),
+        (dtr * decay_to_end).to(W),
+        xr.to(W),
     )  # (B,nc,H,P,N)
 
     # inter-chunk recurrence over chunk states
     chunk_decay = torch.exp(torch.sum(dA, dim=2))               # (B,nc,H)
-    state = (torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
-             if initial_state is None else initial_state.to(F32))
+    state = (torch.zeros((Bsz, H, P, N), dtype=W, device=x.device)
+             if initial_state is None else initial_state.to(W))
     prev = []
     for c in range(nc):
         prev.append(state)  # the state seen by this chunk's queries
@@ -121,10 +128,10 @@ def ssd_chunked(
     # inter-chunk contribution: y += C_t · decayed prev chunk state
     in_decay = torch.exp(dA_cum)                                # (B,nc,L,H)
     Ch = torch.repeat_interleave(Cr, rep, dim=3)                # (B,nc,L,H,N)
-    y_inter = torch.einsum("bclhn,bchpn->bclhp", Ch.to(F32), prev_states)
+    y_inter = torch.einsum("bclhn,bchpn->bclhp", Ch.to(W), prev_states)
     y_inter = y_inter * in_decay[..., None]
 
-    y = (y_diag.to(F32) + y_inter).reshape(Bsz, S, H, P)
+    y = (y_diag.to(W) + y_inter).reshape(Bsz, S, H, P)
     return y.to(x.dtype), state
 
 
@@ -139,12 +146,13 @@ def ssd_decode_step(
     H = x.shape[2]
     G = Bm.shape[2]
     rep = H // G
+    W = _wide(x.dtype)
     dA = torch.exp(dt[:, 0, :] * A)                             # (B,H)
     Bh = torch.repeat_interleave(Bm[:, 0], rep, dim=1)          # (B,H,N)
     Ch = torch.repeat_interleave(Cm[:, 0], rep, dim=1)
-    upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, 0].to(F32), x[:, 0].to(F32), Bh.to(F32))
-    new_state = state.to(F32) * dA[:, :, None, None] + upd
-    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.to(F32))
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dt[:, 0].to(W), x[:, 0].to(W), Bh.to(W))
+    new_state = state.to(W) * dA[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.to(W))
     return y[:, None].to(x.dtype), new_state.to(state.dtype)
 
 
@@ -161,15 +169,16 @@ def mamba2_mixer(
     di = s.d_inner(D)
     nh = s.n_heads(D)
     gn = s.n_groups * s.d_state
+    W = _wide(x.dtype)
 
     z = torch.einsum("bsd,di->bsi", x, p["w_z"])
     xs = torch.einsum("bsd,di->bsi", x, p["w_x"])
     Bm = torch.einsum("bsd,dg->bsg", x, p["w_B"])
     Cm = torch.einsum("bsd,dg->bsg", x, p["w_C"])
     dt = F.softplus(
-        torch.einsum("bsd,dh->bsh", x, p["w_dt"]).to(F32) + p["dt_bias"].to(F32)
+        torch.einsum("bsd,dh->bsh", x, p["w_dt"]).to(W) + p["dt_bias"].to(W)
     )
-    A = -torch.exp(p["A_log"].to(F32))
+    A = -torch.exp(p["A_log"].to(W))
 
     xbc = torch.cat([xs, Bm, Cm], dim=-1)                       # (B,S,C)
     new_cache = None
@@ -188,17 +197,17 @@ def mamba2_mixer(
 
     if cache is None:
         run = ssd_impl or ssd_chunked
-        y, _state = run(xs, dt.to(x.dtype), A.to(F32), Bm, Cm, s.chunk_size)
+        y, _state = run(xs, dt.to(x.dtype), A.to(W), Bm, Cm, s.chunk_size)
     else:
-        y, new_state = ssd_decode_step(xs, dt.to(F32), A, Bm, Cm, cache["state"])
+        y, new_state = ssd_decode_step(xs, dt.to(W), A, Bm, Cm, cache["state"])
         new_cache = {"conv": new_conv, "state": new_state}
 
     y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     # gated RMSNorm then down-projection (Mamba-2 block epilogue)
     y = y * F.silu(z)
-    var = torch.mean(torch.square(y.to(F32)), dim=-1, keepdim=True)
-    y = (y.to(F32) * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype) * (
+    var = torch.mean(torch.square(y.to(W)), dim=-1, keepdim=True)
+    y = (y.to(W) * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype) * (
         1.0 + p["norm_w"].to(x.dtype)
     )
     return torch.einsum("bsi,id->bsd", y, p["out_proj"]), new_cache

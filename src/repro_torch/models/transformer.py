@@ -1,9 +1,13 @@
 """Model assembly, prefill and decode (port of ``repro/models/transformer.py``).
 
 Family map (as the reference's ``_FORWARD``):
-  dense -> forward_dense  (the flat plan: gemma-2b, yi-6b, glm4-9b; the
-                           grouped local/global plan: gemma3-4b)
-  ssm   -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks)
+  dense / moe -> forward_dense  (the flat plan: gemma-2b, yi-6b, glm4-9b,
+                                 granite-moe-3b-a800m; the grouped
+                                 local/global plan: gemma3-4b; the deepseek
+                                 plan of MLA blocks: deepseek-v2-lite-16b)
+  ssm         -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks)
+  hybrid      -> forward_hybrid (zamba2-1.2b: one shared attention block
+                                 before each group of SSM blocks)
 
 Each family is token embedding, stacks of identical blocks whose weights
 are stacked along a leading layer axis, and a tied or separate LM head. The
@@ -12,15 +16,21 @@ here a Python loop indexes the stacked weights, so that module has no
 counterpart. gemma3's plan nests two stacks: ``group_locals`` is
 (groups, locals, ...), ``group_global`` (groups, ...), and ``tail_locals``
 the locals after the last group; its local layers attend within a sliding
-window and decode into window-sized ring caches. With a decode cache
-(``cache_descs``, ``decode_step``) the loop hands each block per-layer views
-of the stacked cache buffers, and the blocks write their new k/v or conv/SSM
-state through those views in place: the cache tree passed in is updated and
-returned, not copied, where the reference re-stacks a new tree every step.
+window and decode into window-sized ring caches. deepseek's plan stacks
+``dense_layers`` (MLA with a dense MLP) and then ``moe_layers`` (MLA with
+MoE); zamba2's applies the one ``shared_attn`` weight set at each group,
+each site with its own KV cache, so under autograd its gradient sums over
+the sites. Every family forward returns the reference's triple (logits,
+cache, aux): the cache is None without one, and aux is the MoE blocks'
+summed load-balance loss, a 0-d f32 zero for a model without MoE. With a
+decode cache (``cache_descs``, ``decode_step``) the loop hands each block
+per-layer views of the stacked cache buffers, and the blocks write their
+new k/v, MLA latent or conv/SSM state through those views in place: the
+cache tree passed in is updated and returned, not copied, where the
+reference re-stacks a new tree every step.
 Training may recompute each block in the backward pass (``remat``), and the
 LM loss may run chunk by chunk (``chunked_lm_loss``, ``Tuning.loss_chunk``).
-MoE, MLA, the hybrid, encdec and vlm families come with later slices
-(ROADMAP.md section 1).
+The encdec and vlm families come with a later slice (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -36,7 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..tree import tree_flatten, tree_map, tree_unflatten
 from .config import ModelConfig
-from .layers import attention, attn_descs, mlp, mlp_descs, rms_norm
+from .layers import (attention, attn_descs, mla_attention, mla_descs, mlp, mlp_descs, moe,
+                     moe_descs, rms_norm)
 from .params import PDesc, stack_tree
 from .ssm import mamba2_mixer, ssm_descs
 from .tuning import get_tuning
@@ -44,16 +55,19 @@ from .tuning import get_tuning
 F32 = torch.float32
 
 
-def _block_descs(cfg: ModelConfig, *, kind: str) -> Dict:
-    """kind: attn | ssm"""
+def _block_descs(cfg: ModelConfig, *, kind: str, dense_ff: Optional[int] = None) -> Dict:
+    """kind: attn | mla | attn_moe | mla_moe | ssm"""
     d = cfg.d_model
     descs: Dict = {"ln1": PDesc((d,), ("embed",), init="zeros")}
     if kind == "ssm":
         descs["mixer"] = ssm_descs(cfg)
         return descs  # mamba block has its own epilogue norm
-    descs["attn"] = attn_descs(cfg)
+    descs["attn"] = mla_descs(cfg) if kind.startswith("mla") else attn_descs(cfg)
     descs["ln2"] = PDesc((d,), ("embed",), init="zeros")
-    descs["mlp"] = mlp_descs(cfg)
+    if kind.endswith("moe"):
+        descs["moe"] = moe_descs(cfg)
+    else:
+        descs["mlp"] = mlp_descs(cfg, d_ff=dense_ff)
     return descs
 
 
@@ -68,32 +82,43 @@ def _embed_descs(cfg: ModelConfig) -> Dict:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "ssm" and cfg.ssm is not None:
-        return
-    if cfg.family != "dense" or cfg.moe or cfg.mla:
+    if cfg.family not in _FORWARD:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense plans (flat and gemma3's local/global) and the ssm "
-            "family are ported yet (ROADMAP.md section 1)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (have "
+            f"{sorted(_FORWARD)}; ROADMAP.md section 1)")
 
 
 def _dense_plan(cfg: ModelConfig) -> Dict:
-    """Segments of homogeneous stacks (the reference's plans less deepseek's,
-    which needs MLA and MoE)."""
+    """Segments of homogeneous stacks for the dense, moe and mla archs."""
     if cfg.global_period:  # gemma3: groups of (p-1) local + 1 global, + tail
         p = cfg.global_period
         n_groups = cfg.num_layers // p
         tail = cfg.num_layers - n_groups * p
         return {"kind": "gemma3", "groups": n_groups, "locals": p - 1, "tail": tail}
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        return {"kind": "deepseek", "dense": cfg.moe.first_k_dense,
+                "moe": cfg.num_layers - cfg.moe.first_k_dense}
     return {"kind": "flat", "layers": cfg.num_layers}
+
+
+def _attn_kind(cfg: ModelConfig) -> str:
+    if cfg.mla is not None:
+        return "mla_moe" if cfg.moe is not None else "mla"
+    return "attn_moe" if cfg.moe is not None else "attn"
 
 
 def dense_descs(cfg: ModelConfig) -> Dict:
     plan = _dense_plan(cfg)
     descs = _embed_descs(cfg)
-    local = _block_descs(cfg, kind="attn")
     if plan["kind"] == "flat":
-        descs["layers"] = stack_tree(local, plan["layers"])
+        descs["layers"] = stack_tree(_block_descs(cfg, kind=_attn_kind(cfg)), plan["layers"])
         return descs
+    if plan["kind"] == "deepseek":
+        dense_block = _block_descs(cfg, kind="mla", dense_ff=cfg.moe.dense_d_ff)
+        descs["dense_layers"] = stack_tree(dense_block, plan["dense"])
+        descs["moe_layers"] = stack_tree(_block_descs(cfg, kind="mla_moe"), plan["moe"])
+        return descs
+    local = _block_descs(cfg, kind="attn")
     descs["group_locals"] = stack_tree(stack_tree(local, plan["locals"]), plan["groups"])
     descs["group_global"] = stack_tree(_block_descs(cfg, kind="attn"), plan["groups"])
     if plan["tail"]:
@@ -107,7 +132,25 @@ def ssm_descs_tree(cfg: ModelConfig) -> Dict:
     return descs
 
 
-_DESCS = {"dense": dense_descs, "ssm": ssm_descs_tree}
+def _hybrid_plan(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(period, groups, tail SSM layers) of the zamba2 plan."""
+    p = cfg.hybrid_attn_period
+    n_groups = cfg.num_layers // p
+    return p, n_groups, cfg.num_layers - n_groups * p
+
+
+def hybrid_descs(cfg: ModelConfig) -> Dict:
+    p, n_groups, tail = _hybrid_plan(cfg)
+    descs = _embed_descs(cfg)
+    descs["shared_attn"] = _block_descs(cfg, kind="attn")  # ONE shared block
+    descs["group_ssm"] = stack_tree(stack_tree(_block_descs(cfg, kind="ssm"), p), n_groups)
+    if tail:
+        descs["tail_ssm"] = stack_tree(_block_descs(cfg, kind="ssm"), tail)
+    return descs
+
+
+_DESCS = {"dense": dense_descs, "moe": dense_descs, "ssm": ssm_descs_tree,
+          "hybrid": hybrid_descs}
 
 
 def param_descs(cfg: ModelConfig) -> Dict:
@@ -139,22 +182,40 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor, last_only: bool = F
     return apply_head(cfg, params, x)
 
 
+Aux = Optional[torch.Tensor]
+
+
+def _add(a: Aux, b: Aux) -> Aux:
+    """Sum of two aux losses, where None is a block without MoE (no zero
+    tensor is made, and no launch, for each such block)."""
+    return b if a is None else a if b is None else a + b
+
+
 def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  *, kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
-                 cache_index: Optional[int] = None, ring: bool = False) -> torch.Tensor:
-    """One block; with a cache, its per-layer views are updated in place."""
+                 cache_index: Optional[int] = None,
+                 ring: bool = False) -> Tuple[torch.Tensor, Aux]:
+    """One block -> (x, its MoE aux loss or None); with a cache, its
+    per-layer views are updated in place."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         out, new = mamba2_mixer(lp["mixer"], h, cfg, cache=cache)
         if cache is not None:
             cache["conv"].copy_(new["conv"])
             cache["state"].copy_(new["state"])
-        return x + out
-    out, _ = attention(lp["attn"], h, cfg, positions, window=window, cache=cache,
-                       cache_index=cache_index, ring=ring)
+        return x + out, None
+    if kind.startswith("mla"):
+        out, _ = mla_attention(lp["attn"], h, cfg, positions, cache=cache,
+                               cache_index=cache_index)
+    else:
+        out, _ = attention(lp["attn"], h, cfg, positions, window=window, cache=cache,
+                           cache_index=cache_index, ring=ring)
     x = x + out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg.activation)
+    if kind.endswith("moe"):
+        m, aux = moe(lp["moe"], h2, cfg)
+        return x + m, aux
+    return x + mlp(lp["mlp"], h2, cfg.activation), None
 
 
 def _keep_weight_products(ctx, func, *args, **kwargs):
@@ -211,8 +272,9 @@ def _layer(tree: Optional[Dict], *idx: int) -> Optional[Dict]:
 def _run_stack(cfg: ModelConfig, stacked: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
                cache_index: Optional[int] = None, ring: bool = False,
-               remat: str = "none") -> torch.Tensor:
-    """The reference's ``_scan_stack``: every layer of a stacked block."""
+               remat: str = "none") -> Tuple[torch.Tensor, Aux]:
+    """The reference's ``_scan_stack``: every layer of a stacked block ->
+    (x, the layers' summed aux loss or None)."""
     n = tree_flatten(stacked)[0][0].shape[0]
 
     def body(lp, h, c):
@@ -220,9 +282,11 @@ def _run_stack(cfg: ModelConfig, stacked: Dict, x: torch.Tensor, positions: torc
                             cache_index=cache_index, ring=ring)
 
     body = _maybe_remat(body, remat)
+    aux = None
     for i in range(n):
-        x = body(_layer(stacked, i), x, _layer(cache, i))
-    return x
+        x, a = body(_layer(stacked, i), x, _layer(cache, i))
+        aux = _add(aux, a)
+    return x, aux
 
 
 def _positions(tokens: torch.Tensor, cache: Optional[Dict], cache_index: Optional[int]):
@@ -233,75 +297,129 @@ def _positions(tokens: torch.Tensor, cache: Optional[Dict], cache_index: Optiona
                       device=tokens.device)
 
 
+def _check_family(cfg: ModelConfig, *families: str) -> None:
+    _check_supported(cfg)
+    if cfg.family not in families:
+        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not {' or '.join(families)}")
+
+
+def _result(cfg: ModelConfig, params: Dict, x: torch.Tensor, last_only: bool,
+            cache: Optional[Dict], aux: Aux) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return _logits(cfg, params, x, last_only), cache, aux
+
+
 def forward_dense(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   last_only: bool = False, *, remat: str = "none",
                   cache: Optional[Dict] = None, cache_index: Optional[int] = None):
-    """tokens (B, S) int -> logits (B, S, vocab_padded) (the last position
-    alone under ``last_only``; hidden states under ``Tuning.loss_chunk``);
-    with a cache, single-token decode at ``cache_index`` -> (logits, the
-    updated cache)."""
-    _check_supported(cfg)
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not dense")
+    """tokens (B, S) int -> (logits (B, S, vocab_padded), cache, aux): the
+    last position alone under ``last_only``, hidden states under
+    ``Tuning.loss_chunk``; without a cache the cache is None, with one it
+    is single-token decode at ``cache_index`` and the cache comes back
+    updated in place. aux is the MoE blocks' load-balance loss (0-d)."""
+    _check_family(cfg, "dense", "moe")
     plan = _dense_plan(cfg)
     decode = cache is not None
     positions = _positions(tokens, cache, cache_index)
     x = _embed(cfg, params, tokens)
     if plan["kind"] == "flat":
-        x = _run_stack(cfg, params["layers"], x, positions, kind="attn",
-                       cache=cache["layers"] if decode else None, cache_index=cache_index,
-                       remat=remat)
+        x, aux = _run_stack(cfg, params["layers"], x, positions, kind=_attn_kind(cfg),
+                            cache=cache["layers"] if decode else None,
+                            cache_index=cache_index, remat=remat)
+    elif plan["kind"] == "deepseek":
+        x, a1 = _run_stack(cfg, params["dense_layers"], x, positions, kind="mla",
+                           cache=cache["dense_layers"] if decode else None,
+                           cache_index=cache_index, remat=remat)
+        x, a2 = _run_stack(cfg, params["moe_layers"], x, positions, kind="mla_moe",
+                           cache=cache["moe_layers"] if decode else None,
+                           cache_index=cache_index, remat=remat)
+        aux = _add(a1, a2)
     else:  # gemma3 grouped local/global
         def group_body(gl, gg, cl, cg, h):
-            h = _run_stack(cfg, gl, h, positions, kind="attn", window=cfg.sliding_window,
-                           cache=cl, cache_index=cache_index, ring=decode)
-            return _block_apply(cfg, gg, h, positions, kind="attn", cache=cg,
-                                cache_index=cache_index)
+            h, a1 = _run_stack(cfg, gl, h, positions, kind="attn", window=cfg.sliding_window,
+                               cache=cl, cache_index=cache_index, ring=decode)
+            h, a2 = _block_apply(cfg, gg, h, positions, kind="attn", cache=cg,
+                                 cache_index=cache_index)
+            return h, _add(a1, a2)
 
         group_body = _maybe_remat(group_body, remat)
+        aux = None
         for g in range(plan["groups"]):
-            x = group_body(_layer(params["group_locals"], g), _layer(params["group_global"], g),
-                           _layer(cache["group_locals"], g) if decode else None,
-                           _layer(cache["group_global"], g) if decode else None, x)
+            x, a = group_body(_layer(params["group_locals"], g),
+                              _layer(params["group_global"], g),
+                              _layer(cache["group_locals"], g) if decode else None,
+                              _layer(cache["group_global"], g) if decode else None, x)
+            aux = _add(aux, a)
         if plan["tail"]:
-            x = _run_stack(cfg, params["tail_locals"], x, positions, kind="attn",
-                           window=cfg.sliding_window,
-                           cache=cache["tail_locals"] if decode else None,
-                           cache_index=cache_index, ring=decode, remat=remat)
-    logits = _logits(cfg, params, x, last_only)
-    return (logits, cache) if decode else logits
+            x, a = _run_stack(cfg, params["tail_locals"], x, positions, kind="attn",
+                              window=cfg.sliding_window,
+                              cache=cache["tail_locals"] if decode else None,
+                              cache_index=cache_index, ring=decode, remat=remat)
+            aux = _add(aux, a)
+    return _result(cfg, params, x, last_only, cache, aux)
 
 
 def forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 last_only: bool = False, *, remat: str = "none",
                 cache: Optional[Dict] = None, cache_index: Optional[int] = None):
-    """tokens (B, S) int -> logits (B, S, vocab_padded), every mixer on the
-    model's own chunked SSD (the reference's forward passes no ssd_impl);
-    ``last_only`` and ``Tuning.loss_chunk`` as for ``forward_dense``; with a
-    cache, single-token decode -> (logits, the updated cache)."""
-    _check_supported(cfg)
-    if cfg.family != "ssm":
-        raise ValueError(f"{cfg.name} is of the {cfg.family} family, not ssm")
+    """tokens (B, S) int -> (logits, cache, aux) as ``forward_dense``, every
+    mixer on the model's own chunked SSD (the reference's forward passes no
+    ssd_impl); aux is a 0-d zero."""
+    _check_family(cfg, "ssm")
     decode = cache is not None
     x = _embed(cfg, params, tokens)
-    x = _run_stack(cfg, params["layers"], x, _positions(tokens, cache, cache_index), kind="ssm",
-                   cache=cache["layers"] if decode else None, cache_index=cache_index,
-                   remat=remat)
-    logits = _logits(cfg, params, x, last_only)
-    return (logits, cache) if decode else logits
+    x, aux = _run_stack(cfg, params["layers"], x, _positions(tokens, cache, cache_index),
+                        kind="ssm", cache=cache["layers"] if decode else None,
+                        cache_index=cache_index, remat=remat)
+    return _result(cfg, params, x, last_only, cache, aux)
 
 
-_FORWARD = {"dense": forward_dense, "ssm": forward_ssm}
+def forward_hybrid(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                   last_only: bool = False, *, remat: str = "none",
+                   cache: Optional[Dict] = None, cache_index: Optional[int] = None):
+    """zamba2: the shared attention block, then a group of SSM blocks, for
+    each group; then the tail SSM blocks. -> (logits, cache, aux) as
+    ``forward_dense``; the shared block's cache has one entry per site."""
+    _check_family(cfg, "hybrid")
+    _, n_groups, tail = _hybrid_plan(cfg)
+    decode = cache is not None
+    positions = _positions(tokens, cache, cache_index)
+    x = _embed(cfg, params, tokens)
+
+    def group_body(shared, gssm, c_attn, c_ssm, h):
+        # the shared attention block (one weight set; a KV cache per site)
+        h, a1 = _block_apply(cfg, shared, h, positions, kind="attn", cache=c_attn,
+                             cache_index=cache_index)
+        h, a2 = _run_stack(cfg, gssm, h, positions, kind="ssm", cache=c_ssm,
+                           cache_index=cache_index)
+        return h, _add(a1, a2)
+
+    group_body = _maybe_remat(group_body, remat)
+    aux = None
+    for g in range(n_groups):
+        x, a = group_body(params["shared_attn"], _layer(params["group_ssm"], g),
+                          _layer(cache["shared_attn"], g) if decode else None,
+                          _layer(cache["group_ssm"], g) if decode else None, x)
+        aux = _add(aux, a)
+    if tail:
+        x, a = _run_stack(cfg, params["tail_ssm"], x, positions, kind="ssm",
+                          cache=cache["tail_ssm"] if decode else None,
+                          cache_index=cache_index, remat=remat)
+        aux = _add(aux, a)
+    return _result(cfg, params, x, last_only, cache, aux)
+
+
+_FORWARD = {"dense": forward_dense, "moe": forward_dense, "ssm": forward_ssm,
+            "hybrid": forward_hybrid}
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *, extras=None, **kw):
     """Dispatch by family, as the reference's ``forward``; ``kw`` are the
     family forward's (``last_only``, ``remat``, ``cache``, ``cache_index``).
-    Without a cache it returns logits only: the reference also returns its
-    decode cache and the MoE aux loss, which these families do not produce
-    (the aux loss comes with MoE, ROADMAP.md section 3); with a cache,
-    (logits, the updated cache). ``extras`` feed the encdec and vlm
-    families, not ported yet; the others ignore them, as in the reference."""
+    Returns the reference's (logits, cache, aux). ``extras`` feed the encdec
+    and vlm families, not ported yet; the others ignore them, as in the
+    reference."""
     _check_supported(cfg)
     return _FORWARD[cfg.family](cfg, params, tokens, **kw)
 
@@ -311,6 +429,14 @@ def _attn_cache_desc(cfg: ModelConfig, batch: int, length: int) -> Dict[str, PDe
     return {
         "k": PDesc((batch, length, nkv, hd), ("batch", "seq", "kv_heads", None), init="zeros"),
         "v": PDesc((batch, length, nkv, hd), ("batch", "seq", "kv_heads", None), init="zeros"),
+    }
+
+
+def _mla_cache_desc(cfg: ModelConfig, batch: int, length: int) -> Dict[str, PDesc]:
+    m = cfg.mla
+    return {
+        "ckv": PDesc((batch, length, m.kv_lora_rank), ("batch", "seq", None), init="zeros"),
+        "kpe": PDesc((batch, length, m.qk_rope_head_dim), ("batch", "seq", None), init="zeros"),
     }
 
 
@@ -331,9 +457,22 @@ def cache_descs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
     _check_supported(cfg)
     if cfg.family == "ssm":
         return {"layers": stack_tree(_ssm_cache_desc(cfg, batch), cfg.num_layers)}
+    if cfg.family == "hybrid":
+        p, n_groups, tail = _hybrid_plan(cfg)
+        out = {
+            "shared_attn": stack_tree(_attn_cache_desc(cfg, batch, max_len), n_groups),
+            "group_ssm": stack_tree(stack_tree(_ssm_cache_desc(cfg, batch), p), n_groups),
+        }
+        if tail:
+            out["tail_ssm"] = stack_tree(_ssm_cache_desc(cfg, batch), tail)
+        return out
     plan = _dense_plan(cfg)
+    mk = _mla_cache_desc if cfg.mla is not None else _attn_cache_desc
     if plan["kind"] == "flat":
-        return {"layers": stack_tree(_attn_cache_desc(cfg, batch, max_len), plan["layers"])}
+        return {"layers": stack_tree(mk(cfg, batch, max_len), plan["layers"])}
+    if plan["kind"] == "deepseek":
+        return {"dense_layers": stack_tree(mk(cfg, batch, max_len), plan["dense"]),
+                "moe_layers": stack_tree(mk(cfg, batch, max_len), plan["moe"])}
     # gemma3: ring caches (window-sized) for locals, full for globals
     w = min(cfg.sliding_window, max_len)
     out = {
@@ -351,7 +490,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tenso
     """tokens (B, 1) at position ``cache_index`` (a host int) -> (logits
     (B, 1, vocab_padded), the cache updated in place). The families not
     ported yet (the encdec branch of the reference among them) raise."""
-    return forward(cfg, params, tokens, extras=extras, cache=cache, cache_index=cache_index)
+    logits, cache, _ = forward(cfg, params, tokens, extras=extras, cache=cache,
+                               cache_index=cache_index)
+    return logits, cache
 
 
 def _token_nll(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -424,4 +565,4 @@ class DenseLM(nn.Module):
         return tree_unflatten(self._treedef, [getattr(self, n) for n in self._names])
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward_dense(self.cfg, self.tree(), tokens)
+        return forward_dense(self.cfg, self.tree(), tokens)[0]

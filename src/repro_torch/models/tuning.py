@@ -11,13 +11,18 @@ baseline and tuned variants without touching model call signatures:
   microbatch — grad-accumulation microbatches per step (1 = off), dividing
       saved-activation memory;
   constrain_activations — accepted, and read by nothing: the reference
-      pins (B, S, D) activations to batch sharding at every block boundary.
+      pins (B, S, D) activations to batch sharding at every block boundary;
+  moe_impl — "einsum" (GShard grouped one-hot dispatch, ``layers.moe``) or
+      "ep" (expert parallelism over an all-to-all). The reference takes "ep"
+      only under an EP mesh (``parallel/ep_moe.py::get_ep_mesh``) and the
+      einsum dispatch without one; the port has no EP mesh until
+      ``parallel/ep_moe.py`` is ported (ROADMAP.md section 1), so "ep" runs
+      the einsum dispatch, as the reference does on a single device.
 
 The reference's ``constrain*`` helpers (``with_sharding_constraint`` under
 the ambient mesh, also applied to the decode cache and query under
 ``decode_seq_constraint``) have no counterpart: the port runs on one card,
-where every tensor is whole on its device. ``moe_impl`` comes with the MoE
-layers that read it (ROADMAP.md section 1).
+where every tensor is whole on its device.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ class Tuning:
     loss_chunk: int = 0
     microbatch: int = 1
     constrain_activations: bool = False
+    moe_impl: str = "einsum"
 
 
 _CURRENT = Tuning()

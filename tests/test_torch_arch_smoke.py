@@ -51,8 +51,10 @@ def test_port_lists_the_reference_architectures_in_its_order():
     from repro.configs import ARCHITECTURES as REF
 
     assert ARCHITECTURES == [a for a in REF if a in ARCHITECTURES]
-    assert ARCHITECTURES == ["yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "mamba2_370m"]
-    for alias in ("yi-6b", "glm4-9b", "gemma3-4b"):
+    assert ARCHITECTURES == ["yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "zamba2_1p2b",
+                             "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "mamba2_370m"]
+    for alias in ("yi-6b", "glm4-9b", "gemma3-4b", "zamba2-1.2b", "granite-moe-3b-a800m",
+                  "deepseek-v2-lite-16b"):
         assert port_get_config(alias).name == alias
 
 
@@ -93,6 +95,9 @@ def test_full_config_parameter_counts():
     assert counts["gemma_2b"] == 2_506_172_416
     assert counts["gemma3_4b"] == 3_879_907_840
     assert 6.0e9 < counts["yi_6b"] < 6.2e9 and 9.3e9 < counts["glm4_9b"] < 9.5e9
+    assert counts["granite_moe_3b_a800m"] == 3_380_577_792
+    assert counts["deepseek_v2_lite_16b"] == 15_706_470_400
+    assert counts["zamba2_1p2b"] == 1_173_619_584
 
 
 def test_forward_and_train_step_match_reference(arch):
@@ -101,12 +106,16 @@ def test_forward_and_train_step_match_reference(arch):
     logits_j, _, aux = jax_forward(cfg, jp, tok[:, :-1])
     loss_j = jax_lm_loss(cfg, logits_j, tok[:, 1:], aux)
     with torch.no_grad():
-        logits_t = tm.forward(tcfg, tp, torch.from_numpy(tok[:, :-1]))
+        logits_t, _, aux_t = tm.forward(tcfg, tp, torch.from_numpy(tok[:, :-1]))
     assert logits_t.shape == (B, S, tcfg.vocab_padded)
     want = np.asarray(logits_j)
     scale = np.abs(want).max()
     np.testing.assert_allclose(logits_t.numpy(), want, rtol=0,
                                atol=LOGIT_TOL.get(name, DEFAULT_TOL) * scale)
+    # the MoE load-balance loss (a 0-d zero for the other families)
+    assert aux_t.shape == () and aux_t.dtype == torch.float32
+    np.testing.assert_allclose(float(aux_t), float(aux), rtol=1e-5, atol=0)
+    assert (float(aux_t) > 0) == (tcfg.moe is not None)
     # one optimizer step on both sides, from the same state and batch
     step_j = jax.jit(jax_make_train_step(cfg, JaxAdamWConfig(lr=LR), remat="none"))
     pj, _, lj = step_j(jp, jax_adamw_init(jp), {"tokens": tok})
@@ -160,5 +169,5 @@ def test_prefill_step_matches_reference(arch):
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=LOGIT_TOL.get(name, DEFAULT_TOL) * np.abs(want).max())
     with torch.no_grad():
-        full = tm.forward(tcfg, tp, torch.from_numpy(tok))
+        full = tm.forward(tcfg, tp, torch.from_numpy(tok))[0]
     torch.testing.assert_close(got, full[:, -1:], rtol=0, atol=1e-6)

@@ -180,7 +180,7 @@ def test_cuda_mamba2_smoke_forward_through_the_kernel():
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))).cuda()
     with torch.no_grad():
-        want = forward_ssm(cfg, params, tokens)
+        want = forward_ssm(cfg, params, tokens)[0]
         before = _launches()
         x = params["embed"][tokens]
         for i in range(cfg.num_layers):
@@ -322,7 +322,7 @@ def test_cuda_serving_decode_and_replay(arch, tmp_path):
         cache = zeros_from_descs(cache_descs(cfg, 1, 16), device="cuda")
         got = torch.cat([decode_step(cfg, params, cache, tokens[:, i: i + 1], i)[0]
                          for i in range(16)], dim=1)
-        want = forward(cfg, params, tokens)
+        want = forward(cfg, params, tokens)[0]
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     base = run_speculative_serving(tmp_path / "base", cfg, params, n_tokens=10)
     killed = run_speculative_serving(tmp_path / "kill", cfg, params, n_tokens=10, kill_at=5)
@@ -433,5 +433,49 @@ def test_cuda_gemma3_serving_equals_cpu(tmp_path):
     cpu = run_speculative_serving(tmp_path / "cpu", cfg, tree_map(lambda t: t.cpu(), params),
                                   n_tokens=24, device="cpu")
     assert len(cpu.durable_tokens) == 24 and card.durable_tokens == cpu.durable_tokens
+    assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
+    assert _launches() == before
+
+
+# --------------------------------------------------------------------------- #
+# the moe, mla and hybrid families on the card                                #
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_cuda_granite_train_step_bit_identical_under_determinism(monkeypatch):
+    """Two calls of the granite-moe smoke train step from one state, under
+    torch.use_deterministic_algorithms(True): the MoE dispatch (stable-sort
+    routing, the gates as a product with the ids' one-hot, the one-hot
+    einsums) has no scatter, so loss and params are bit-identical."""
+    _cuda()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, params, batch = _smoke("granite_moe_3b_a800m")
+        loss_a, pa = _train(cfg, params, batch)
+        loss_b, pb = _train(cfg, params, batch)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_v2_lite_16b", "zamba2_1p2b"])
+def test_cuda_new_family_serving_equals_cpu(arch, tmp_path):
+    """The moe, mla and hybrid smoke configs served on the card: 16 tokens,
+    failure-free and with a kill after 8, equal a CPU run's from the same
+    weights; no kernel is launched."""
+    from repro_torch.train import run_speculative_serving
+    from repro_torch.tree import tree_map
+
+    _cuda()
+    cfg, params, _ = _smoke(arch)
+    before = _launches()
+    card = run_speculative_serving(tmp_path / "card", cfg, params, n_tokens=16)
+    killed = run_speculative_serving(tmp_path / "kill", cfg, params, n_tokens=16, kill_at=8)
+    cpu = run_speculative_serving(tmp_path / "cpu", cfg, tree_map(lambda t: t.cpu(), params),
+                                  n_tokens=16, device="cpu")
+    assert len(cpu.durable_tokens) == 16 and card.durable_tokens == cpu.durable_tokens
     assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
     assert _launches() == before

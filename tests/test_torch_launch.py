@@ -46,7 +46,8 @@ def _port_cli(args, out, capsys):
     return json.loads(capsys.readouterr().out)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-370m", "zamba2-1.2b",
+                                  "granite-moe-3b-a800m", "deepseek-v2-lite-16b"])
 def test_cli_matches_reference_cli(arch, tmp_path, monkeypatch, capsys):
     """Failure-free runs from the same weights print the same keys and
     losses within 5e-3. (After a kill the first and last exported losses are

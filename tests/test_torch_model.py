@@ -67,8 +67,9 @@ def test_logits_and_loss_match(jax_params):
     logits_j, _, aux = jax_forward(CFG, jax_params, tok[:, :-1])
     loss_j = jax_lm_loss(CFG, logits_j, tok[:, 1:], aux)
     params = _port(jax_params)
-    logits_t = tm.forward_dense(CFG, params, torch.from_numpy(tok[:, :-1]))
-    loss_t = tm.lm_loss(CFG, logits_t, torch.from_numpy(tok[:, 1:]))
+    logits_t, cache, aux_t = tm.forward_dense(CFG, params, torch.from_numpy(tok[:, :-1]))
+    assert cache is None and aux_t.shape == () and float(aux_t) == 0.0 == float(aux)
+    loss_t = tm.lm_loss(CFG, logits_t, torch.from_numpy(tok[:, 1:]), aux_t)
     assert logits_t.shape == (4, 16, CFG.vocab_padded)
     # f32 sums in another order (einsum vs XLA dots): logits of magnitude
     # ~1 agree to 1e-4, the loss to 1e-5 relative
@@ -155,13 +156,13 @@ def test_forward_ssm_logits_match_jax():
     logits_j, _, _ = jax_forward(SSM_CFG, jp, tok)
     cfg = SSM_PORT_CFG
     params = _port(jp)
-    logits_t = tm.forward_ssm(cfg, params, torch.from_numpy(tok))
+    logits_t = tm.forward_ssm(cfg, params, torch.from_numpy(tok))[0]
     assert logits_t.shape == (2, 16, cfg.vocab_padded)
     # 4 layers of f32 sums in another order: logits of magnitude ~4 agree to
     # ~2e-5, so 1e-4 as for the dense model
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), atol=1e-4, rtol=0)
     # the family dispatch reaches the same function
-    torch.testing.assert_close(tm.forward(cfg, params, torch.from_numpy(tok)), logits_t,
+    torch.testing.assert_close(tm.forward(cfg, params, torch.from_numpy(tok))[0], logits_t,
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="not dense"):
         tm.forward_dense(cfg, params, torch.from_numpy(tok))

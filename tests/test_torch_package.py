@@ -16,7 +16,9 @@ REF = ROOT / "src" / "repro"
 COPIED = sorted(
     [p.relative_to(REF).as_posix() for d in ("core", "durable", "store") for p in (REF / d).glob("*.py")]
     + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py",
-       "configs/mamba2_370m.py", "configs/yi_6b.py", "configs/glm4_9b.py", "configs/gemma3_4b.py"]
+       "configs/mamba2_370m.py", "configs/yi_6b.py", "configs/glm4_9b.py", "configs/gemma3_4b.py",
+       "configs/zamba2_1p2b.py", "configs/granite_moe_3b_a800m.py",
+       "configs/deepseek_v2_lite_16b.py"]
 )
 
 
@@ -39,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 23
+    assert len(COPIED) == 26
     assert all((PORT / rel).exists() for rel in COPIED)
 
 

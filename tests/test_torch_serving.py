@@ -128,7 +128,7 @@ def test_teacher_forced_decode_equals_forward(setup, arch):
     feed = _tokens(tcfg, 16, seed=4)
     got, _ = _port_decode(tcfg, tp, feed)
     with torch.no_grad():
-        want = tm.forward(tcfg, tp, torch.from_numpy(feed)[None])[0].numpy()
+        want = tm.forward(tcfg, tp, torch.from_numpy(feed)[None])[0][0].numpy()
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
 
 
@@ -237,11 +237,12 @@ def test_decode_step_refuses_what_it_cannot_do(setup):
                 tm.decode_step(cfg, tp, cache, tok, bad)
         assert not any(t.any() for t in tree_flatten(cache)[0])
         tm.decode_step(cfg, tp, cache, tok, MAX_LEN - 1)  # the last slot fits
-    # gemma3's local/global plan and the softcap are ported since (tests
-    # test_torch_gemma3.py and test_torch_tuning.py); MoE is not yet
-    for other in (dataclasses.replace(cfg, family="moe"),
-                  dataclasses.replace(cfg, family="hybrid"),
-                  dataclasses.replace(cfg, family="encdec")):
+    # gemma3's local/global plan, the softcap, MoE, MLA and the hybrid are
+    # ported since (tests test_torch_gemma3.py, test_torch_tuning.py,
+    # test_torch_moe.py, test_torch_mla.py, test_torch_hybrid.py); the
+    # encdec and vlm families are not yet
+    for other in (dataclasses.replace(cfg, family="encdec"),
+                  dataclasses.replace(cfg, family="vlm")):
         with pytest.raises(NotImplementedError, match="ported yet"):
             tm.cache_descs(other, 1, MAX_LEN)
         with pytest.raises(NotImplementedError, match="ported yet"):
@@ -282,6 +283,6 @@ def test_float64_model_stays_float64(setup):
     with torch.no_grad():
         got = torch.cat([tm.decode_step(cfg, tp64, cache, feed[:, i: i + 1], i)[0]
                          for i in range(16)], dim=1)
-        want = tm.forward(cfg, tp64, feed)
+        want = tm.forward(cfg, tp64, feed)[0]
     assert got.dtype == torch.float64
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)

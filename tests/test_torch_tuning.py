@@ -124,8 +124,9 @@ def test_constrain_activations_is_noop_numerically(setup, untuned):
 
 
 def test_tuning_flags_are_the_references_less_moe_impl():
-    # moe_impl comes with the MoE layers that read it
-    want = {f.name: f.default for f in dataclasses.fields(JaxTuning) if f.name != "moe_impl"}
+    # every flag of the reference's, moe_impl among them since the MoE
+    # layers that read it are ported (tests/test_torch_moe.py)
+    want = {f.name: f.default for f in dataclasses.fields(JaxTuning)}
     assert {f.name: f.default for f in dataclasses.fields(Tuning)} == want
 
 
@@ -192,7 +193,7 @@ def test_remat_rejects_an_unknown_policy(setup):
 def test_make_step_builds_each_kind(setup, untuned):
     _, tp, batch = setup
     with torch.no_grad():
-        want = tm.forward(PORT_CFG, tp, torch.as_tensor(batch["tokens"]))
+        want = tm.forward(PORT_CFG, tp, torch.as_tensor(batch["tokens"]))[0]
     last = make_step(PORT_CFG, "prefill")(tp, batch)
     torch.testing.assert_close(last, want[:, -1:], rtol=0, atol=1e-6)
     cache = tm.zeros_from_descs(tm.cache_descs(PORT_CFG, B, 8), device="cpu")
@@ -249,8 +250,8 @@ def test_softcap_forward_and_train_step_match_reference(setup):
     want, _, _ = jax_forward(SOFTCAP_CFG, jp, tok[:, :-1])
     want = np.asarray(want)
     with torch.no_grad():
-        got = tm.forward(PORT_SOFTCAP_CFG, tp, torch.from_numpy(tok[:, :-1])).numpy()
-        plain = tm.forward(PORT_CFG, tp, torch.from_numpy(tok[:, :-1])).numpy()
+        got = tm.forward(PORT_SOFTCAP_CFG, tp, torch.from_numpy(tok[:, :-1]))[0].numpy()
+        plain = tm.forward(PORT_CFG, tp, torch.from_numpy(tok[:, :-1]))[0].numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
     # the cap bites: tanh(l / 30) * 30 differs from l where |l| is large
     assert np.abs(got - plain).max() > 1e-3
