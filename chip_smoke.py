@@ -52,7 +52,9 @@ Phases, each printing its own line and raising on failure:
            codec kernels, and their losses agree. Then the granite-moe,
            deepseek-v2-lite and zamba2 smoke configs (moe, mla, hybrid): a
            trainer kill ends with the failure-free digest, and the external
-           metrics list every step once
+           metrics list every step once (the encdec and vlm families are not
+           run here: the loop feeds no frames or image embeddings, and its
+           train step raises KeyError, as the reference's does)
   train_full  one make_train_step of mamba2-370m at full width (421,709,312
            parameters) on 1 x 2048 tokens, f32, under remat "none" and
            "full" from the same state, in turns: median step time and peak
@@ -60,19 +62,28 @@ Phases, each printing its own line and raising on failure:
            max |param| (bit-identity printed); two calls under one policy
            bit-identical. Then granite-moe at full width and 12 of its 32
            layers (TRAIN_MOE_LAYERS) under remat "full": step time, peak
-           memory, two calls bit-identical
+           memory, two calls bit-identical. Then seamless-m4t-large-v2 at
+           full width and TRAIN_ENCDEC_LAYERS encoder and decoder layers on
+           1 x 2048 tokens and 1 x 1024 seeded frames, under remat "full",
+           likewise
   prefill  make_prefill_step at 1 x 2048 tokens, f32, on yi-6b, glm4-9b,
-           gemma3-4b, granite-moe, deepseek-v2-lite and zamba2 at full width,
-           one model at a time: median of 3 warmed calls, achieved TFLOP/s
+           gemma3-4b, granite-moe, deepseek-v2-lite, zamba2, seamless (1 x 1024
+           frames) and llama-3.2-vision at its first VLM_GROUPS groups (1024
+           image tokens; the gates set non-zero) at full width, one model at
+           a time: median of 3 warmed calls, achieved TFLOP/s
            against the f32 peak (operations by the reference's algorithm,
            _prefill_flops); the last-position logits equal the full forward's
            last row within 1e-5 of max |logit|
   serve    the speculative serving path (models decode_step, train/serve.py)
            at full width: gemma-2b x18, gemma3-4b x34, mamba2-370m x48,
-           granite-moe x32, deepseek-v2-lite x27 and zamba2 x38, f32, seeded
-           random weights, batch 1: the median decode ms per token against
+           granite-moe x32, deepseek-v2-lite x27, zamba2 x38, seamless x24
+           (its decode primed with the encoder output) and llama-3.2-vision
+           at its first VLM_GROUPS groups, f32, seeded random weights and
+           extras, batch 1: the median decode ms per token against
            the batch-1 HBM bound (weight bytes over 3.35 TB/s; for MoE the
-           active-expert bound beside it); device time, launches and idle
+           active-expert bound beside it; for encdec and vlm the larger of
+           the weights a step reads and the cross-attention K/V it projects
+           again over the f32 peak); device time, launches and idle
            share of 8 warmed steps (torch.profiler); a 16-token serving run
            failure-free and with kill_at=8 give the same durable tokens,
            with the seconds Restore took to replay; gemma-2b's decode timed
@@ -81,10 +92,10 @@ Phases, each printing its own line and raising on failure:
            tokens (1e-4 / 1e-3 of max |logit|; the checks of the families
            with attention in float64, see SERVE_TOL and SERVE_CHECK_CUT; MoE
            at a capacity that drops no slot, _held). At the smoke configs
-           of the eight architectures the tokens served on the card equal a
-           CPU run's from the same weights (gemma3's 24 tokens wrap its
-           window-8 rings). The serving path launches none of the kernels
-           above
+           of the ten architectures the tokens served on the card equal a
+           CPU run's from the same weights and extras (gemma3's 24 tokens
+           wrap its window-8 rings). The serving path launches none of the
+           kernels above
 
 Then it prints the card's name and power limit, a JSON line with each
 kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
@@ -147,6 +158,20 @@ NEW_FAMILIES = ("granite_moe_3b_a800m", "deepseek_v2_lite_16b", "zamba2_1p2b")
 #: card, nor do 16 (1.77e9: out of memory on an H100 in adamw_update, beside
 #: the first call's params that the second is compared with); 12 (1.37e9) do
 TRAIN_MOE_LAYERS = 12
+#: the encdec and vlm architectures: full width in prefill and serve (the
+#: vlm cut in depth, VLM_GROUPS), their smoke configs in the serve phase's
+#: card-vs-CPU check, seamless's train step in train_full
+CROSS_FAMILIES = ("seamless_m4t_large_v2", "llama_3p2_vision_90b")
+#: llama-3.2-vision-90b's depth on the card: its 87,679,377,448 parameters
+#: (351 GB in f32) do not fit one H100, so prefill and serving run its first
+#: 2 of 20 groups: 10 of 100 layers, 8 self and 2 gated cross (42.7 GB)
+VLM_GROUPS = 2
+#: seamless's depth in train_full, its encoder and decoder cut alike: the
+#: functional AdamW holds 28 bytes a parameter, and the whole model's 2.04e9
+#: parameters (57 GB), beside the activations and the first call's params
+#: that the second is compared with, do not fit the card (24 + 24 ran out of
+#: memory on an H100 in adamw_update); 16 + 16 (1.54e9) do
+TRAIN_ENCDEC_LAYERS = 16
 
 
 def say(phase: str, msg: str) -> None:
@@ -178,6 +203,63 @@ def median_ms(fn, reps: int) -> float:
 def bound_ms(nbytes: int, ops: int, peak: float = F32_OPS_PER_S) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def on_card(name: str):
+    """An architecture's config as the card runs it: full width, and
+    llama-3.2-vision cut to its first VLM_GROUPS groups (see there)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, num_layers=VLM_GROUPS * cfg.cross_attn_period)
+    return cfg
+
+
+def depth(cfg) -> str:
+    if cfg.family == "encdec":
+        return f"x{cfg.encoder_layers} encoder + x{cfg.num_layers} decoder"
+    return f"x{cfg.num_layers}"
+
+
+def extras_for(cfg, gen) -> dict:
+    """Seeded stub frames (encdec, (1, source_len, D)) or image embeddings
+    (vlm, (1, num_image_tokens, D)) on the generator's
+    device, f32, of the std of an embedded token: rows of std
+    1/sqrt(vocab_padded) (the init's fan-in), times sqrt(d_model) under
+    gelu. Nothing is drawn for the other families."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    key, n = (("frames", cfg.source_len) if cfg.family == "encdec"
+              else ("image_embeds", cfg.num_image_tokens))
+    std = math.sqrt((cfg.d_model if cfg.activation == "gelu" else 1) / cfg.vocab_padded)
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device=gen.device)
+    return {key: x * std}
+
+
+def open_gates(cfg, params, gen) -> None:
+    """A vlm's cross-block gates are 0 at init, which makes each cross block
+    the identity: set them in place to seeded values of magnitude 0.5-1.5 and
+    random sign. Nothing is drawn for the other families."""
+    if cfg.family != "vlm":
+        return
+    gcross = params["group_cross"]
+    for holder, key in ((gcross["attn"], "gate"), (gcross, "mlp_gate")):
+        t = holder[key]
+        mag = torch.rand(t.shape, generator=gen, device=t.device) + 0.5
+        sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device) * 2 - 1
+        holder[key] = (mag * sign).to(t.dtype)
+
+
+def to_dtype(tree, dtype) -> None:
+    """Every leaf of a nested dict to ``dtype``, in place, one at a time:
+    each old leaf is freed before the next new one is made, so a float64
+    copy needs little more than its own memory."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            to_dtype(tree[k], dtype)
+        else:
+            tree[k] = tree[k].to(dtype)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -874,7 +956,7 @@ def phase_train_full(cfg, card: str, policies=("none", "full")) -> dict:
     params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
     opt = adamw_init(params)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1), generator=gen,
-                                     device="cuda")}
+                                     device="cuda"), **extras_for(cfg, gen)}
     steps = {r: make_train_step(cfg, AdamWConfig(lr=1e-3), remat=r) for r in policies}
     times = {r: [] for r in policies}
     peak = {r: 0 for r in policies}
@@ -921,10 +1003,11 @@ def phase_train_full(cfg, card: str, policies=("none", "full")) -> dict:
                     f"{peak['full'] / peak['none']:.3f}x the memory)")
         what.append(f"full vs none: params within {p_diff:.3e} (max |param| {scale:.3f}), "
                     f"loss within {l_diff:.3e}, {'bit-identical' if bit else 'not bit-identical'}")
-    say("train_full", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters, 1 x {TRAIN_SEQ} "
-        f"tokens, f32, loss {float(loss_0):.6f}: " + "; ".join(what) + "; two calls under "
+    src = "".join(f", 1 x {v.shape[1]} {k}" for k, v in batch.items() if k != "tokens")
+    say("train_full", f"{cfg.name} {depth(cfg)}, {n_params:,} parameters, 1 x {TRAIN_SEQ} "
+        f"tokens{src}, f32, loss {float(loss_0):.6f}: " + "; ".join(what) + "; two calls under "
         f"each policy bit-identical; kernel launches {launches}; {card}")
-    del params, opt, first, p_0
+    del params, opt, first, p_0, batch
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -980,10 +1063,37 @@ def _ssm_flops(cfg, seq: int) -> int:
             + 2 * seq * di * d)
 
 
+def _cross_flops(cfg, seq: int, src: int) -> int:
+    """Cross-attention of ``seq`` queries over ``src`` source positions: q
+    and the output projection, K and V projected from the source, and every
+    (query, source) pair."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    return 2 * seq * d * hd * 2 * nq + 2 * src * d * hd * 2 * nkv + 2 * 2 * seq * src * nq * hd
+
+
+def _cross_kv_flops(cfg) -> int:
+    """The cross-attention K and V that one decode step projects again from
+    the whole source (the reference keeps no cross K/V cache)."""
+    kv = 2 * 2 * cfg.d_model * cfg.num_kv_heads * cfg.resolved_head_dim
+    if cfg.family == "encdec":
+        return cfg.num_layers * kv * cfg.source_len
+    return cfg.num_layers // cfg.cross_attn_period * kv * cfg.num_image_tokens
+
+
 def _prefill_flops(cfg, seq: int) -> int:
     """Operations of one prefill at batch 1, by the reference's algorithm
     in each family, and the head on the last position."""
     head = 2 * cfg.d_model * cfg.vocab_padded
+    if cfg.family == "encdec":  # the encoder over the frames, then the decoder
+        return (cfg.encoder_layers * _attn_flops(cfg, cfg.source_len, cfg.d_ff)
+                + cfg.num_layers * (_attn_flops(cfg, seq, cfg.d_ff)
+                                    + _cross_flops(cfg, seq, cfg.source_len)) + head)
+    if cfg.family == "vlm":  # per group: the self blocks, then the gated cross block
+        p, groups = cfg.cross_attn_period, cfg.num_layers // cfg.cross_attn_period
+        return groups * ((p - 1) * _attn_flops(cfg, seq, cfg.d_ff)
+                         + _cross_flops(cfg, seq, cfg.num_image_tokens)
+                         + 2 * seq * 3 * cfg.d_model * cfg.d_ff) + head
     if cfg.family == "hybrid":
         groups = cfg.num_layers // cfg.hybrid_attn_period
         return groups * _attn_flops(cfg, seq, cfg.d_ff) + cfg.num_layers * _ssm_flops(cfg, seq) + head
@@ -1009,7 +1119,7 @@ def phase_prefill(card: str, names) -> dict:
 
     ops.reset_launch_counts()
     for name in names:
-        cfg = get_config(name)
+        cfg = on_card(name)
         gc.collect()
         torch.cuda.empty_cache()
         n_params = param_count(param_descs(cfg))
@@ -1017,11 +1127,14 @@ def phase_prefill(card: str, names) -> dict:
         params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ), generator=gen,
                                          device="cuda")}
+        open_gates(cfg, params, gen)
+        extras = extras_for(cfg, gen)
+        batch.update(extras)
         step = make_prefill_step(cfg)
         ms = median_ms(lambda: step(params, batch), 3)
         last = step(params, batch)
         with torch.no_grad():
-            want = forward(cfg, params, batch["tokens"])[0][:, -1:]
+            want = forward(cfg, params, batch["tokens"], extras=extras)[0][:, -1:]
         if last.shape != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(last).all()):
             raise AssertionError(f"{cfg.name} prefill logits {tuple(last.shape)}")
         rel = float((last - want).abs().max() / want.abs().max())
@@ -1042,13 +1155,24 @@ def phase_prefill(card: str, names) -> dict:
         elif cfg.family == "hybrid":
             plan = (f", the shared attention block at {cfg.num_layers // cfg.hybrid_attn_period}"
                     f" sites among {cfg.num_layers} SSM layers")
-        say("prefill", f"{cfg.name} x{cfg.num_layers}, {n_params:,} parameters "
+        elif cfg.family == "encdec":
+            enc = cfg.encoder_layers * _attn_flops(cfg, cfg.source_len, cfg.d_ff)
+            cross = cfg.num_layers * _cross_flops(cfg, PREFILL_SEQ, cfg.source_len)
+            plan = (f", 1 x {cfg.source_len} frames (the encoder {enc / flops:.1%} of the "
+                    f"operations, the cross-attention {cross / flops:.1%})")
+        elif cfg.family == "vlm":
+            groups = cfg.num_layers // cfg.cross_attn_period
+            plan = (f", its first {groups} of {get_config(name).num_layers // cfg.cross_attn_period}"
+                    f" groups ({groups * (cfg.cross_attn_period - 1)} self and {groups} gated "
+                    f"cross blocks, the gates set non-zero), 1 x {cfg.num_image_tokens} image "
+                    f"tokens")
+        say("prefill", f"{cfg.name} {depth(cfg)}, {n_params:,} parameters "
             f"({n_params * 4 / 1e9:.2f} GB f32){plan}, 1 x {PREFILL_SEQ} tokens: median "
             f"{ms:.2f} ms of 3 warmed calls, {flops / 1e12:.3f} TFLOP, {tflops:.2f} TFLOP/s "
             f"({tflops / (F32_OPS_PER_S / 1e12):.1%} of the 67 TFLOP/s f32 peak, TF32 off); "
             f"last_only logits == the full forward's last row within {rel:.3e} of max |logit|; "
             f"{card}")
-        del params, last, want
+        del params, last, want, batch, extras
     gc.collect()
     torch.cuda.empty_cache()
     return dict(ops.LAUNCHES)
@@ -1061,7 +1185,7 @@ def phase_prefill(card: str, names) -> dict:
 #: 64 (_held): the chunk is how the forward splits the sequence, not a
 #: width of the model, and 64 positions instead of zamba2's chunk of 256
 #: keep the phase within the script's time
-SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64}
+SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64, "encdec": 64, "vlm": 64}
 #: decode logits against the forward's, relative to max |logit|. gemma-2b's
 #: random weights make its attention a hard argmax (the init takes the
 #: fan-in of wq (D, N, H) as N, so the attention logits have a std near
@@ -1072,9 +1196,10 @@ SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64}
 #: same amplification leaves the two about 4e-7 apart. mamba2-370m runs in
 #: f32; its forward runs the f32 chunked SSD, whose drift through 48 layers
 #: sets SSM_TOL.
-SERVE_TOL = {"dense": 1e-4, "moe": 1e-4, "ssm": SSM_TOL, "hybrid": 1e-4}
+SERVE_TOL = {"dense": 1e-4, "moe": 1e-4, "ssm": SSM_TOL, "hybrid": 1e-4, "encdec": 1e-4,
+             "vlm": 1e-4}
 SERVE_CHECK_DTYPE = {"dense": torch.float64, "moe": torch.float64, "ssm": torch.float32,
-                     "hybrid": torch.float64}
+                     "hybrid": torch.float64, "encdec": torch.float64, "vlm": torch.float64}
 #: models whose float64 check is held at a cut of their plan, full width:
 #: name -> (groups, layers, or MoE layers after the dense ones; whether the
 #: float64 decode also runs at full depth, its gap printed, not held).
@@ -1090,9 +1215,11 @@ SERVE_CHECK_DTYPE = {"dense": torch.float64, "moe": torch.float64, "ssm": torch.
 #: |logit| after 32 (examples/torch_decode_drift.py --arch
 #: granite-moe-3b-a800m), so it is held at its first 16 layers.
 #: deepseek-v2-lite-16b's float64 weights (126 GB) do not fit the card: it
-#: is held at its dense layer and first four MoE layers (22.7 GB in float64)
+#: is held at its dense layer and first four MoE layers (22.7 GB in float64).
+#: llama-3.2-vision-90b's first VLM_GROUPS groups (85.3 GB in float64) do
+#: not either: it is held at its first group (51.1 GB in float64)
 SERVE_CHECK_CUT = {"gemma3-4b": (2, True), "granite-moe-3b-a800m": (16, False),
-                   "deepseek-v2-lite-16b": (4, False)}
+                   "deepseek-v2-lite-16b": (4, False), "llama-3.2-vision-90b": (1, False)}
 
 
 def _held(cfg):
@@ -1114,12 +1241,17 @@ def _held(cfg):
 
 def _cut(cfg, params, n: int):
     """The config and params of a plan cut to its first ``n`` groups and its
-    whole tail (gemma3), to its dense layers and first ``n`` MoE layers
-    (deepseek), or to its first ``n`` layers (the flat plan). The cut
-    stacks are copies, so the full model can be freed."""
+    whole tail (gemma3), to its first ``n`` groups (the vlm), to its dense
+    layers and first ``n`` MoE layers (deepseek), or to its first ``n``
+    layers (the flat plan). The cut stacks are copies, so the full model can
+    be freed."""
     from repro_torch.tree import tree_map
 
     cut = dict(params)
+    if cfg.family == "vlm":
+        for k in ("group_selfs", "group_cross"):
+            cut[k] = tree_map(lambda t: t[:n].clone(), params[k])
+        return dataclasses.replace(cfg, num_layers=n * cfg.cross_attn_period), cut
     if cfg.global_period:
         tail = cfg.num_layers % cfg.global_period
         for k in ("group_locals", "group_global"):
@@ -1128,6 +1260,21 @@ def _cut(cfg, params, n: int):
     key, dense = ("moe_layers", cfg.moe.first_k_dense) if "moe_layers" in params else ("layers", 0)
     cut[key] = tree_map(lambda t: t[:n].clone(), params[key])
     return dataclasses.replace(cfg, num_layers=dense + n), cut
+
+
+def _decode_weights(cfg) -> int:
+    """Parameters one decode step reads: all but the encoder (it runs once,
+    before decoding) and, when the head is not tied to it, the input
+    embedding table (one row is read)."""
+    from repro_torch.models import param_count, param_descs
+
+    descs = param_descs(cfg)
+    n = param_count(descs)
+    if "encoder" in descs:
+        n -= param_count(descs["encoder"])
+    if not cfg.tie_embeddings:
+        n -= (cfg.vocab_padded - 1) * cfg.d_model
+    return n
 
 
 def _expert_params(cfg) -> int:
@@ -1171,16 +1318,23 @@ def _serve_full(cfg, card: str) -> None:
     n_params = param_count(param_descs(cfg))
     T, tol = SERVE_T[cfg.family], SERVE_TOL[cfg.family]
     tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device="cuda")
+    open_gates(cfg, params, gen)
+    ext = extras_for(cfg, gen)
     held = _held(cfg)
 
-    def teacher_forced(p, dtype, c=held):
+    def teacher_forced(p, dtype, c=held, e=ext):
         """decode_step over the T tokens: the logits (1, T, V) and the ms of
-        each step, which ends in the host's argmax as a serving step does."""
+        each step, which ends in the host's argmax as a serving step does.
+        An encdec cache first gets the encoder output from a forward with
+        the cache, as the reference's tests prime it (a serving session
+        decodes against the zeros of an empty cache instead)."""
         cache = zeros_from_descs(cache_descs(c, 1, T), dtype, "cuda")
+        if c.family == "encdec":
+            forward(c, p, tokens[:, :1], extras=e, cache=cache, cache_index=0)
         out, step_ms = [], []
         for i in range(T):
             t0 = time.perf_counter()
-            logits, cache = decode_step(c, p, cache, tokens[:, i: i + 1], i)
+            logits, cache = decode_step(c, p, cache, tokens[:, i: i + 1], i, extras=e)
             int(torch.argmax(logits[0, 0, : cfg.vocab_size]))
             step_ms.append((time.perf_counter() - t0) * 1e3)
             out.append(logits)
@@ -1193,7 +1347,7 @@ def _serve_full(cfg, card: str) -> None:
 
     with torch.no_grad():
         got, step_ms = teacher_forced(params, torch.float32)
-        want = forward(held, params, tokens)[0]
+        want = forward(held, params, tokens, extras=ext)[0]
         rel32 = rel_diff(got, want)
         moe_note = ""
         if cfg.moe is not None:
@@ -1206,7 +1360,7 @@ def _serve_full(cfg, card: str) -> None:
 
         def eight_steps():
             for i in range(8):
-                lg, _ = decode_step(cfg, params, cache, tokens[:, i: i + 1], i)
+                lg, _ = decode_step(cfg, params, cache, tokens[:, i: i + 1], i, extras=ext)
                 int(torch.argmax(lg[0, 0, : cfg.vocab_size]))
 
         events = profile(eight_steps)
@@ -1216,15 +1370,25 @@ def _serve_full(cfg, card: str) -> None:
     dev_ms = sum(m for m, _ in kernels.values()) / 8
     launches = sum(n for _, n in kernels.values()) / 8
     b_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    bound = f"batch-1 HBM bound {b_ms:.3f} ms (weight bytes over 3.35 TB/s)"
     active = ""
+    if cfg.family in ("encdec", "vlm"):
+        read, kv = _decode_weights(cfg), _cross_kv_flops(cfg)
+        r_ms, kv_ms = read * 4 / HBM_BYTES_PER_S * 1e3, kv / F32_OPS_PER_S * 1e3
+        b_ms = max(r_ms, kv_ms)
+        src = cfg.source_len if cfg.family == "encdec" else cfg.num_image_tokens
+        bound = (f"batch-1 bound {b_ms:.3f} ms ({'bytes' if r_ms >= kv_ms else 'operations'}: the "
+                 f"{read:,} weights a step reads over 3.35 TB/s, {r_ms:.3f} ms; the "
+                 f"cross-attention K/V projected again from {src} source positions, "
+                 f"{kv / 1e9:.1f} GFLOP over the f32 peak, {kv_ms:.3f} ms)")
     if cfg.moe is not None:
         a_params = n_params - _expert_params(cfg) * (1 - cfg.moe.top_k / cfg.moe.num_experts)
         active = (f"; the active-expert bound (top-{cfg.moe.top_k} of {cfg.moe.num_experts} "
                   f"experts, {a_params:,.0f} parameters) {a_params * 4 / HBM_BYTES_PER_S * 1e3:.3f}"
                   f" ms, which the one-hot dispatch does not reach: it reads every expert")
     say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{T - 1} "
-        f"({1e3 / ms:.1f} tokens/s); batch-1 HBM bound {b_ms:.3f} ms (weight bytes over 3.35 "
-        f"TB/s), {b_ms / ms:.1%} of it{active}; 8 warmed steps under torch.profiler: device "
+        f"({1e3 / ms:.1f} tokens/s); {bound}, {b_ms / ms:.1%} of it{active}; 8 warmed steps "
+        f"under torch.profiler: device "
         f"time {dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
         f"{1 - dev_ms / ms:.1%} of the median step; {card}")
     for what, table in (("device time per step by kernel", kernels),
@@ -1241,11 +1405,13 @@ def _serve_full(cfg, card: str) -> None:
     record, restore = _timed_restores(serve)
     try:
         t0 = time.perf_counter()
-        base = run_speculative_serving(root / "base", cfg, params, n_tokens=16)
+        base = run_speculative_serving(root / "base", cfg, params, n_tokens=16, extras=ext)
         t_base = time.perf_counter() - t0
-        killed = run_speculative_serving(root / "kill", cfg, params, n_tokens=16, kill_at=8)
+        killed = run_speculative_serving(root / "kill", cfg, params, n_tokens=16, kill_at=8,
+                                         extras=ext)
         # the same replay over all 16 durable tokens, timed directly
-        so = serve.DecodeSessionStateObject(root / "replay", cfg, params, max_len=64)
+        so = serve.DecodeSessionStateObject(root / "replay", cfg, params, max_len=64,
+                                            extras=ext)
         so.tokens = list(base.durable_tokens)
         t0 = time.perf_counter()
         so._rebuild_cache()
@@ -1275,10 +1441,11 @@ def _serve_full(cfg, card: str) -> None:
         if check == torch.float32:
             rel = rel32
         else:
+            e64 = {k: v.to(check) for k, v in ext.items()}
             if full64:
                 p64 = tree_map(lambda t: t.to(check), params)
-                want64 = forward(held, p64, tokens)[0]
-                rel = rel_all = rel_diff(teacher_forced(p64, check)[0], want64)
+                want64 = forward(held, p64, tokens, extras=e64)[0]
+                rel = rel_all = rel_diff(teacher_forced(p64, check, e=e64)[0], want64)
                 note = (f" (in f32 the two differ by {rel32:.3e}, and the f32 forward from a "
                         f"float64 one by {rel_diff(want, want64):.3e}: rounding amplified by the "
                         f"random model, not held)")
@@ -1287,15 +1454,16 @@ def _serve_full(cfg, card: str) -> None:
                 note = (f" (in f32 at all {cfg.num_layers} layers the two differ by {rel32:.3e}; "
                         f"float64 at all {cfg.num_layers} not run: see SERVE_CHECK_CUT)")
             if cut is not None:
-                c_cfg, c_p = _cut(held, params, cut)
+                c_cfg, c_p64 = _cut(held, params, cut)
                 del params
                 gc.collect()
                 torch.cuda.empty_cache()
-                c_p64 = tree_map(lambda t: t.to(check), c_p)
-                del c_p
-                rel = rel_diff(teacher_forced(c_p64, check, c_cfg)[0],
-                               forward(c_cfg, c_p64, tokens)[0])
+                to_dtype(c_p64, check)
+                rel = rel_diff(teacher_forced(c_p64, check, c_cfg, e64)[0],
+                               forward(c_cfg, c_p64, tokens, extras=e64)[0])
                 what = (f"its first {cut} groups and its tail" if cfg.global_period
+                        else "its first group" if cfg.family == "vlm" and cut == 1
+                        else f"its first {cut} groups" if cfg.family == "vlm"
                         else f"its dense layer and first {cut} MoE layers"
                         if "moe_layers" in c_p64 else f"its first {cut} layers")
                 note += (f"; held at {what} ({c_cfg.num_layers} layers), full width"
@@ -1307,11 +1475,15 @@ def _serve_full(cfg, card: str) -> None:
     if rel > tol:
         raise AssertionError(f"{cfg.name}: teacher-forced decode differs from forward by "
                              f"{rel:.3e} of max |logit| (tolerance {tol}){note}")
-    say("serve", f"{cfg.name} x{cfg.num_layers} layers, {n_params:,} parameters "
-        f"({n_params * 4 / 1e9:.2f} GB f32), batch 1: teacher-forced decode_step over {T} tokens "
-        f"== one forward within {rel:.3e} of max |logit| (tolerance {tol}){note}{moe_note}; "
-        f"{card}")
-    del want
+    primed = (f" (primed with the encoder output of 1 x {cfg.source_len} seeded frames)"
+              if cfg.family == "encdec" else
+              f" (1 x {cfg.num_image_tokens} seeded image tokens, the gates set non-zero)"
+              if cfg.family == "vlm" else "")
+    say("serve", f"{cfg.name} {depth(cfg)} layers, {n_params:,} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB f32), batch 1: teacher-forced decode_step over {T} tokens"
+        f"{primed} == one forward within {rel:.3e} of max |logit| (tolerance {tol}){note}"
+        f"{moe_note}; {card}")
+    del want, ext
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1341,7 +1513,7 @@ def _seq_constraint_timing(cfg, params, tokens, card: str) -> None:
         f"(on / off {on / off:.3f}x); {card}")
 
 
-def _margins(cfg, params, tokens: list) -> list:
+def _margins(cfg, params, tokens: list, extras: dict) -> list:
     """Top-2 logit margin of each greedy step that produced ``tokens``."""
     from repro_torch.models import cache_descs, decode_step, zeros_from_descs
 
@@ -1350,7 +1522,7 @@ def _margins(cfg, params, tokens: list) -> list:
     with torch.no_grad():
         for i, t in enumerate([0] + tokens[:-1]):
             tok = torch.tensor([[t]], device="cuda")
-            lg, cache = decode_step(cfg, params, cache, tok, i)
+            lg, cache = decode_step(cfg, params, cache, tok, i, extras=extras)
             top2 = torch.topk(lg[0, 0, : cfg.vocab_size], 2).values
             out.append(f"{float(top2[0] - top2[1]):.2e}")
     return out
@@ -1359,9 +1531,9 @@ def _margins(cfg, params, tokens: list) -> list:
 #: the models served at full width, and the smoke configs served on the card
 #: and on the CPU (every ported architecture)
 SERVE_FULL = ("gemma_2b", "gemma3_4b", "mamba2_370m", "granite_moe_3b_a800m",
-              "deepseek_v2_lite_16b", "zamba2_1p2b")
-ARCHS = ("yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "zamba2_1p2b", "granite_moe_3b_a800m",
-         "deepseek_v2_lite_16b", "mamba2_370m")
+              "deepseek_v2_lite_16b", "zamba2_1p2b") + CROSS_FAMILIES
+ARCHS = ("seamless_m4t_large_v2", "yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "zamba2_1p2b",
+         "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "mamba2_370m", "llama_3p2_vision_90b")
 
 
 def phase_serve(card: str) -> dict:
@@ -1384,7 +1556,7 @@ def phase_serve(card: str) -> dict:
         f"{(time.perf_counter() - t0) * 1e3:.2f} us (mean of 1000); {card}")
     ops.reset_launch_counts()
     for name in SERVE_FULL:
-        _serve_full(get_config(name), card)
+        _serve_full(on_card(name), card)
     root = RUN_DIR / "serve_smoke"
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -1394,16 +1566,21 @@ def phase_serve(card: str) -> dict:
             n = 24 if cfg.global_period else 16
             gen = torch.Generator(device="cuda").manual_seed(0)
             params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
-            card_run = run_speculative_serving(root / f"{name}_card", cfg, params, n_tokens=n)
+            open_gates(cfg, params, gen)
+            ext = extras_for(cfg, gen)
+            card_run = run_speculative_serving(root / f"{name}_card", cfg, params, n_tokens=n,
+                                               extras=ext)
             cpu_run = run_speculative_serving(root / f"{name}_cpu", cfg,
-                                              tree_map(lambda t: t.cpu(), params),
-                                              n_tokens=n, device="cpu")
+                                              tree_map(lambda t: t.cpu(), params), n_tokens=n,
+                                              extras=tree_map(lambda t: t.cpu(), ext),
+                                              device="cpu")
             if card_run.durable_tokens != cpu_run.durable_tokens or len(cpu_run.durable_tokens) != n:
+                margins = _margins(cfg, params, card_run.durable_tokens, ext)
                 raise AssertionError(f"{cfg.name}: served on the card {card_run.durable_tokens}, "
                                      f"on the CPU {cpu_run.durable_tokens}; the card's top-2 "
-                                     f"logit margins {_margins(cfg, params, card_run.durable_tokens)}")
+                                     f"logit margins {margins}")
             say("serve", f"{cfg.name}: the {n} tokens served on the card equal a CPU run's "
-                f"from the same weights {card_run.durable_tokens}")
+                f"from the same weights{' and extras' * bool(ext)} {card_run.durable_tokens}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if any(ops.LAUNCHES.values()):
@@ -1470,7 +1647,12 @@ def main() -> int:
     paths["train_full"] = phase_train_full(mamba, card)
     granite = dataclasses.replace(get_config("granite_moe_3b_a800m"), num_layers=TRAIN_MOE_LAYERS)
     paths["train_full_moe"] = phase_train_full(granite, card, policies=("full",))
-    paths["prefill"] = phase_prefill(card, ("yi_6b", "glm4_9b", "gemma3_4b") + NEW_FAMILIES)
+    seamless = dataclasses.replace(get_config("seamless_m4t_large_v2"),
+                                   num_layers=TRAIN_ENCDEC_LAYERS,
+                                   encoder_layers=TRAIN_ENCDEC_LAYERS)
+    paths["train_full_encdec"] = phase_train_full(seamless, card, policies=("full",))
+    paths["prefill"] = phase_prefill(card, ("yi_6b", "glm4_9b", "gemma3_4b") + NEW_FAMILIES
+                                     + CROSS_FAMILIES)
     paths["serve"] = phase_serve(card)
     # every count was set to 0 just before each path and read just after it;
     # ``launches`` is each kernel's count on the path it was ported for

@@ -5,7 +5,10 @@ the forward's MoE aux loss, gradients by autograd, then AdamW. ``prefill_step`` 
 forward and emits the last token's logits. ``serve_step`` decodes one token
 against an explicit KV/state cache, updated in place. The tuning flags
 ``loss_chunk`` and ``microbatch`` are read from ``models.tuning`` when a
-train step runs, as in the reference.
+train step runs, as in the reference. A batch is ``{"tokens": ...}`` and
+the family's extras (the encdec ``"frames"``, the vlm ``"image_embeds"``),
+arrays or tensors, which each step moves to the parameters' device; the
+microbatches slice the extras by rows as they slice the tokens.
 """
 from __future__ import annotations
 
@@ -31,20 +34,26 @@ def _device(params) -> torch.device:
     return tree_flatten(params)[0][0].device
 
 
+def _on(dev: torch.device, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The batch's tokens and extras as tensors on ``dev``."""
+    tokens, extras = split_batch(batch)
+    return (torch.as_tensor(tokens, device=dev),
+            {k: torch.as_tensor(v, device=dev) for k, v in extras.items()})
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     remat: str = "full"):
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(params, opt_state, batch: Dict):
-        """(params, opt_state, {"tokens": (B, S+1) int}) ->
+        """(params, opt_state, {"tokens": (B, S+1) int, extras}) ->
         (new params, new opt_state, loss as a 0-d f32 tensor)."""
         tun = get_tuning()
         leaves, td = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         tree = tree_unflatten(td, leaves)
         dev = leaves[0].device
-        tokens, extras = split_batch(batch)
-        tokens = torch.as_tensor(tokens, device=dev)
+        tokens, extras = _on(dev, batch)
 
         def value_and_grad(tok, ext):
             with torch.enable_grad():
@@ -83,9 +92,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch: Dict) -> torch.Tensor:
-        """{"tokens": (B, S) int} -> the last position's logits (B, 1, vocab_padded)."""
-        tokens, extras = split_batch(batch)
-        tokens = torch.as_tensor(tokens, device=_device(params))
+        """{"tokens": (B, S) int, extras} -> the last position's logits (B, 1, vocab_padded)."""
+        tokens, extras = _on(_device(params), batch)
         with torch.no_grad():
             return forward(cfg, params, tokens, extras=extras, last_only=True)[0]
 
@@ -95,8 +103,7 @@ def make_prefill_step(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig):
     def serve_step(params, cache, batch: Dict, cache_index: int):
         """One token (B, 1) at ``cache_index`` -> (logits, the cache updated in place)."""
-        tokens, extras = split_batch(batch)
-        tokens = torch.as_tensor(tokens, device=_device(params))
+        tokens, extras = _on(_device(params), batch)
         with torch.no_grad():
             return decode_step(cfg, params, cache, tokens, cache_index, extras=extras)
 

@@ -11,8 +11,11 @@ MLA (DeepSeek-V2 multi-head latent attention) caches the compressed
 ``(B, Smax, R)`` kv latent and the shared ``(B, Smax, P)`` rope key and
 expands them with the up-projections at every call, as the reference does.
 MoE is the reference's GShard one-hot einsum dispatch: deterministic, with
-no scatter in its forward or backward. Not ported yet: the cross-attention
-source (ROADMAP.md section 1).
+no scatter in its forward or backward. Cross-attention (the encdec
+decoder's attention to the encoder output, the vlm's gated blocks over the
+image embeddings) projects K and V from ``cross_src``, with no rope, no
+mask and no cache: its K and V are projected again at every call, decode
+steps included, as the reference does.
 """
 from __future__ import annotations
 
@@ -58,15 +61,18 @@ def _soft_cap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(logits / cap) * cap if cap > 0 else logits
 
 
-def attn_descs(cfg: ModelConfig) -> Dict[str, PDesc]:
+def attn_descs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PDesc]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    return {
+    descs = {
         "wq": PDesc((d, nq, hd), ("embed", "heads", None)),
         "wk": PDesc((d, nkv, hd), ("embed", "kv_heads", None)),
         "wv": PDesc((d, nkv, hd), ("embed", "kv_heads", None)),
         "wo": PDesc((nq, hd, d), ("heads", None, "embed")),
     }
+    if cross:
+        descs["gate"] = PDesc((1,), (None,), init="zeros")  # tanh-gated (vlm)
+    return descs
 
 
 def _sdpa(q, k, v, mask: Optional[torch.Tensor], softcap: float = 0.0) -> torch.Tensor:
@@ -107,31 +113,40 @@ def attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"k","v"} (B,Smax,Nkv,H)
     cache_index: Optional[int] = None,   # write offset, a host int
     ring: bool = False,                  # the cache is a ring buffer
-    cross_src: Optional[torch.Tensor] = None,
+    cross_src: Optional[torch.Tensor] = None,  # (B, Ssrc, D): encoder output or image
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention over ``positions``; returns ``(out, new_cache)``.
+    """Attention over ``positions``; returns ``(out, new_cache)``.
 
-    With a cache, this step's k/v are written into ``cache`` in place at
-    ``cache_index`` (modulo Smax for a ring) and the same dict is returned:
-    the cache passed in is consumed, where the reference returns a new one
-    from ``dynamic_update_slice``. An index the write does not fit raises,
-    where ``dynamic_update_slice`` would clamp it."""
-    if cross_src is not None:
-        raise NotImplementedError("cross-attention (encdec, vlm) is not ported yet")
+    Self-attention (``cross_src`` None) is causal unless ``causal=False``
+    (the encoder), within ``window`` if given. With a cache, this step's
+    k/v are written into ``cache`` in place at ``cache_index`` (modulo Smax
+    for a ring) and the same dict is returned: the cache passed in is
+    consumed, where the reference returns a new one from
+    ``dynamic_update_slice``. An index the write does not fit raises, where
+    ``dynamic_update_slice`` would clamp it.
+
+    Cross-attention (``cross_src`` given): every query attends to every
+    source position; K and V are projected from ``cross_src``, neither q
+    nor k is rotated, any cache is ignored and the returned cache is None."""
     B, S, D = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     groups = nq // nkv
-    flash_decode = cache is not None and get_tuning().decode_seq_constraint
+    cross = cross_src is not None
+    flash_decode = cache is not None and not cross and get_tuning().decode_seq_constraint
 
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
-    pos = positions[:, None, :]
-    q = rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
-    k = rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+    kv_in = cross_src if cross else x
+    k = torch.einsum("bsd,dnh->bsnh", kv_in, p["wk"])
+    v = torch.einsum("bsd,dnh->bsnh", kv_in, p["wv"])
+    if not cross:
+        pos = positions[:, None, :]
+        q = rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+        k = rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
 
-    if cache is not None:
+    if cross:
+        mask, cache = None, None  # full attention over the source tokens
+    elif cache is not None:
         smax = cache["k"].shape[1]
         idx = cache_index % smax if ring else cache_index
         _write_cache(cache, idx, k=k, v=v)

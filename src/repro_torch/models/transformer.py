@@ -8,6 +8,14 @@ Family map (as the reference's ``_FORWARD``):
   ssm         -> forward_ssm    (mamba2-370m: Mamba-2 SSD blocks)
   hybrid      -> forward_hybrid (zamba2-1.2b: one shared attention block
                                  before each group of SSM blocks)
+  encdec      -> forward_encdec (seamless-m4t-large-v2: a non-causal encoder
+                                 over the stub audio frames, a decoder of
+                                 self-attention, cross-attention to the
+                                 encoder output and an MLP)
+  vlm         -> forward_vlm    (llama-3.2-vision-90b: groups of self blocks,
+                                 each group closed by a tanh-gated
+                                 cross-attention block over the stub image
+                                 embeddings)
 
 Each family is token embedding, stacks of identical blocks whose weights
 are stacked along a leading layer axis, and a tied or separate LM head. The
@@ -20,7 +28,16 @@ window and decode into window-sized ring caches. deepseek's plan stacks
 ``dense_layers`` (MLA with a dense MLP) and then ``moe_layers`` (MLA with
 MoE); zamba2's applies the one ``shared_attn`` weight set at each group,
 each site with its own KV cache, so under autograd its gradient sums over
-the sites. Every family forward returns the reference's triple (logits,
+the sites. The vlm plan nests ``group_selfs`` (groups, period - 1, ...)
+and stacks ``group_cross`` (groups, ...); its cross blocks keep no cache.
+The encdec decode cache holds the decoder's KV caches and ``enc_out``, the
+encoder output that ``decode_step`` cross-attends to: a cache from
+``cache_descs`` holds zeros there until a ``forward`` with a cache
+(``enc_out`` None) runs the encoder and stores its output, as in the
+reference. Cross-attention K and V are projected from the source at every
+call, decode steps included. ``forward`` takes the encdec ``frames`` and
+the vlm ``image_embeds`` from ``extras`` and raises ``KeyError`` without
+them. Every family forward returns the reference's triple (logits,
 cache, aux): the cache is None without one, and aux is the MoE blocks'
 summed load-balance loss, a 0-d f32 zero for a model without MoE. With a
 decode cache (``cache_descs``, ``decode_step``) the loop hands each block
@@ -30,7 +47,6 @@ cache tree passed in is updated and returned, not copied, where the
 reference re-stacks a new tree every step.
 Training may recompute each block in the backward pass (``remat``), and the
 LM loss may run chunk by chunk (``chunked_lm_loss``, ``Tuning.loss_chunk``).
-The encdec and vlm families come with a later slice (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -56,12 +72,18 @@ F32 = torch.float32
 
 
 def _block_descs(cfg: ModelConfig, *, kind: str, dense_ff: Optional[int] = None) -> Dict:
-    """kind: attn | mla | attn_moe | mla_moe | ssm"""
+    """kind: attn | mla | attn_moe | mla_moe | ssm | cross"""
     d = cfg.d_model
     descs: Dict = {"ln1": PDesc((d,), ("embed",), init="zeros")}
     if kind == "ssm":
         descs["mixer"] = ssm_descs(cfg)
         return descs  # mamba block has its own epilogue norm
+    if kind == "cross":  # vlm: both residual branches tanh-gated, the gates 0 at init
+        descs["attn"] = attn_descs(cfg, cross=True)
+        descs["ln2"] = PDesc((d,), ("embed",), init="zeros")
+        descs["mlp"] = mlp_descs(cfg)
+        descs["mlp_gate"] = PDesc((1,), (None,), init="zeros")
+        return descs
     descs["attn"] = mla_descs(cfg) if kind.startswith("mla") else attn_descs(cfg)
     descs["ln2"] = PDesc((d,), ("embed",), init="zeros")
     if kind.endswith("moe"):
@@ -83,9 +105,8 @@ def _embed_descs(cfg: ModelConfig) -> Dict:
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in _FORWARD:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (have "
-            f"{sorted(_FORWARD)}; ROADMAP.md section 1)")
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r} (have "
+                         f"{sorted(_FORWARD)})")
 
 
 def _dense_plan(cfg: ModelConfig) -> Dict:
@@ -149,8 +170,33 @@ def hybrid_descs(cfg: ModelConfig) -> Dict:
     return descs
 
 
+def encdec_descs(cfg: ModelConfig) -> Dict:
+    descs = _embed_descs(cfg)
+    descs["encoder"] = stack_tree(_block_descs(cfg, kind="attn"), cfg.encoder_layers)
+    dec_block = _block_descs(cfg, kind="attn")
+    dec_block["ln_cross"] = PDesc((cfg.d_model,), ("embed",), init="zeros")
+    dec_block["cross_attn"] = attn_descs(cfg)  # no gate
+    descs["decoder"] = stack_tree(dec_block, cfg.num_layers)
+    return descs
+
+
+def _vlm_plan(cfg: ModelConfig) -> Tuple[int, int]:
+    """(period, groups) of the vlm plan: each group is period - 1 self
+    blocks and one cross block."""
+    p = cfg.cross_attn_period
+    return p, cfg.num_layers // p
+
+
+def vlm_descs(cfg: ModelConfig) -> Dict:
+    p, n_groups = _vlm_plan(cfg)
+    descs = _embed_descs(cfg)
+    descs["group_selfs"] = stack_tree(stack_tree(_block_descs(cfg, kind="attn"), p - 1), n_groups)
+    descs["group_cross"] = stack_tree(_block_descs(cfg, kind="cross"), n_groups)
+    return descs
+
+
 _DESCS = {"dense": dense_descs, "moe": dense_descs, "ssm": ssm_descs_tree,
-          "hybrid": hybrid_descs}
+          "hybrid": hybrid_descs, "encdec": encdec_descs, "vlm": vlm_descs}
 
 
 def param_descs(cfg: ModelConfig) -> Dict:
@@ -193,10 +239,12 @@ def _add(a: Aux, b: Aux) -> Aux:
 
 def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  *, kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
-                 cache_index: Optional[int] = None,
-                 ring: bool = False) -> Tuple[torch.Tensor, Aux]:
+                 cache_index: Optional[int] = None, ring: bool = False,
+                 cross_src: Optional[torch.Tensor] = None,
+                 causal: bool = True) -> Tuple[torch.Tensor, Aux]:
     """One block -> (x, its MoE aux loss or None); with a cache, its
-    per-layer views are updated in place."""
+    per-layer views are updated in place. A "cross" block attends to
+    ``cross_src`` and keeps no cache."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         out, new = mamba2_mixer(lp["mixer"], h, cfg, cache=cache)
@@ -204,12 +252,18 @@ def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.T
             cache["conv"].copy_(new["conv"])
             cache["state"].copy_(new["state"])
         return x + out, None
+    if kind == "cross":
+        out, _ = attention(lp["attn"], h, cfg, positions, cross_src=cross_src, causal=False)
+        x = x + out * torch.tanh(lp["attn"]["gate"].to(x.dtype))
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        m = mlp(lp["mlp"], h2, cfg.activation)
+        return x + m * torch.tanh(lp["mlp_gate"].to(x.dtype)), None
     if kind.startswith("mla"):
         out, _ = mla_attention(lp["attn"], h, cfg, positions, cache=cache,
                                cache_index=cache_index)
     else:
         out, _ = attention(lp["attn"], h, cfg, positions, window=window, cache=cache,
-                           cache_index=cache_index, ring=ring)
+                           cache_index=cache_index, ring=ring, causal=causal)
     x = x + out
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
@@ -271,7 +325,7 @@ def _layer(tree: Optional[Dict], *idx: int) -> Optional[Dict]:
 
 def _run_stack(cfg: ModelConfig, stacked: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                kind: str, window: Optional[int] = None, cache: Optional[Dict] = None,
-               cache_index: Optional[int] = None, ring: bool = False,
+               cache_index: Optional[int] = None, ring: bool = False, causal: bool = True,
                remat: str = "none") -> Tuple[torch.Tensor, Aux]:
     """The reference's ``_scan_stack``: every layer of a stacked block ->
     (x, the layers' summed aux loss or None)."""
@@ -279,7 +333,7 @@ def _run_stack(cfg: ModelConfig, stacked: Dict, x: torch.Tensor, positions: torc
 
     def body(lp, h, c):
         return _block_apply(cfg, lp, h, positions, kind=kind, window=window, cache=c,
-                            cache_index=cache_index, ring=ring)
+                            cache_index=cache_index, ring=ring, causal=causal)
 
     body = _maybe_remat(body, remat)
     aux = None
@@ -410,18 +464,96 @@ def forward_hybrid(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     return _result(cfg, params, x, last_only, cache, aux)
 
 
+def _decoder_block(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                   enc_out: torch.Tensor, cache: Optional[Dict],
+                   cache_index: Optional[int]) -> torch.Tensor:
+    """The encdec decoder block: causal self-attention (cached in decode),
+    cross-attention to ``enc_out`` (no gate), then the MLP."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    out, _ = attention(lp["attn"], h, cfg, positions, cache=cache, cache_index=cache_index)
+    x = x + out
+    hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+    out, _ = attention(lp["cross_attn"], hc, cfg, positions, cross_src=enc_out, causal=False)
+    x = x + out
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2, cfg.activation)
+
+
+def forward_encdec(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                   last_only: bool = False, *, frames: Optional[torch.Tensor],
+                   remat: str = "none", cache: Optional[Dict] = None,
+                   cache_index: Optional[int] = None, enc_out: Optional[torch.Tensor] = None):
+    """seamless: decoder tokens (B, S) and the stub audio frontend's
+    ``frames`` (B, Ssrc, D) -> (logits, cache, aux) as ``forward_dense``.
+    The encoder (non-causal, positions 0..Ssrc-1) runs unless ``enc_out``
+    gives its output; with a cache, the output used is stored as the
+    cache's ``enc_out``. aux is a 0-d zero."""
+    _check_family(cfg, "encdec")
+    decode = cache is not None
+    if enc_out is None:
+        B, S_src = frames.shape[:2]
+        src_pos = torch.arange(S_src, dtype=torch.int32, device=frames.device)[None].expand(
+            B, S_src)
+        enc_out, _ = _run_stack(cfg, params["encoder"], frames, src_pos, kind="attn",
+                                causal=False, remat=remat)
+    positions = _positions(tokens, cache, cache_index)
+    x = _embed(cfg, params, tokens)
+
+    def dec_body(lp, h, c, src):
+        return _decoder_block(cfg, lp, h, positions, src, c, cache_index)
+
+    dec_body = _maybe_remat(dec_body, remat)
+    for i in range(cfg.num_layers):
+        x = dec_body(_layer(params["decoder"], i), x,
+                     _layer(cache["decoder"], i) if decode else None, enc_out)
+    if decode:
+        cache["enc_out"] = enc_out
+    return _result(cfg, params, x, last_only, cache, None)
+
+
+def forward_vlm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                last_only: bool = False, *, image_embeds: torch.Tensor,
+                remat: str = "none", cache: Optional[Dict] = None,
+                cache_index: Optional[int] = None):
+    """llama-3.2-vision: tokens (B, S) and the stub vision frontend's
+    ``image_embeds`` (B, Nimg, D) -> (logits, cache, aux) as
+    ``forward_dense``. Each group runs its self blocks (cached in decode),
+    then its gated cross block over ``image_embeds``. aux is a 0-d zero."""
+    _check_family(cfg, "vlm")
+    _, n_groups = _vlm_plan(cfg)
+    decode = cache is not None
+    positions = _positions(tokens, cache, cache_index)
+    x = _embed(cfg, params, tokens)
+
+    def group_body(gs, gc, cs, h, img):
+        h, _ = _run_stack(cfg, gs, h, positions, kind="attn", cache=cs, cache_index=cache_index)
+        return _block_apply(cfg, gc, h, positions, kind="cross", cross_src=img)[0]
+
+    group_body = _maybe_remat(group_body, remat)
+    for g in range(n_groups):
+        x = group_body(_layer(params["group_selfs"], g), _layer(params["group_cross"], g),
+                       _layer(cache["group_selfs"], g) if decode else None, x, image_embeds)
+    return _result(cfg, params, x, last_only, cache, None)
+
+
 _FORWARD = {"dense": forward_dense, "moe": forward_dense, "ssm": forward_ssm,
-            "hybrid": forward_hybrid}
+            "hybrid": forward_hybrid, "encdec": forward_encdec, "vlm": forward_vlm}
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *, extras=None, **kw):
     """Dispatch by family, as the reference's ``forward``; ``kw`` are the
     family forward's (``last_only``, ``remat``, ``cache``, ``cache_index``).
     Returns the reference's (logits, cache, aux). ``extras`` feed the encdec
-    and vlm families, not ported yet; the others ignore them, as in the
-    reference."""
+    family its ``"frames"`` and the vlm family its ``"image_embeds"`` (a
+    ``KeyError`` without them); the others ignore them, as in the reference."""
     _check_supported(cfg)
-    return _FORWARD[cfg.family](cfg, params, tokens, **kw)
+    extras = extras or {}
+    fwd = _FORWARD[cfg.family]
+    if cfg.family == "encdec":
+        return fwd(cfg, params, tokens, frames=extras["frames"], **kw)
+    if cfg.family == "vlm":
+        return fwd(cfg, params, tokens, image_embeds=extras["image_embeds"], **kw)
+    return fwd(cfg, params, tokens, **kw)
 
 
 def _attn_cache_desc(cfg: ModelConfig, batch: int, length: int) -> Dict[str, PDesc]:
@@ -466,6 +598,16 @@ def cache_descs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
         if tail:
             out["tail_ssm"] = stack_tree(_ssm_cache_desc(cfg, batch), tail)
         return out
+    if cfg.family == "encdec":
+        return {
+            "decoder": stack_tree(_attn_cache_desc(cfg, batch, max_len), cfg.num_layers),
+            "enc_out": PDesc((batch, cfg.source_len, cfg.d_model), ("batch", None, "embed"),
+                             init="zeros"),
+        }
+    if cfg.family == "vlm":
+        p, n_groups = _vlm_plan(cfg)
+        return {"group_selfs": stack_tree(
+            stack_tree(_attn_cache_desc(cfg, batch, max_len), p - 1), n_groups)}
     plan = _dense_plan(cfg)
     mk = _mla_cache_desc if cfg.mla is not None else _attn_cache_desc
     if plan["kind"] == "flat":
@@ -488,8 +630,15 @@ def cache_descs(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict, tokens: torch.Tensor,
                 cache_index: int, *, extras=None) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_index`` (a host int) -> (logits
-    (B, 1, vocab_padded), the cache updated in place). The families not
-    ported yet (the encdec branch of the reference among them) raise."""
+    (B, 1, vocab_padded), the cache updated in place). encdec decodes
+    against the cache's ``enc_out`` (zeros until a ``forward`` with the
+    cache stored the encoder's output, as in the reference); the vlm takes
+    ``extras["image_embeds"]``."""
+    if cfg.family == "encdec":
+        logits, cache, _ = forward_encdec(cfg, params, tokens,
+                                          frames=(extras or {}).get("frames"), cache=cache,
+                                          cache_index=cache_index, enc_out=cache.get("enc_out"))
+        return logits, cache
     logits, cache, _ = forward(cfg, params, tokens, extras=extras, cache=cache,
                                cache_index=cache_index)
     return logits, cache

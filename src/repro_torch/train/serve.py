@@ -14,7 +14,11 @@ updated in place by each step (``models/transformer.py``); a session never
 keeps an old cache, so the protocol is the reference's. The decode step
 runs under ``torch.no_grad()`` on whichever thread calls it: ``Restore``
 may run on the runtime's decision-applying thread, so the step sets up
-nothing per thread.
+nothing per thread. ``extras`` (the encdec ``"frames"``, the vlm
+``"image_embeds"``) go to every ``decode_step``, the replay's too. An
+encdec session decodes against its cache's ``enc_out``, which an empty
+cache holds as zeros, so its tokens do not depend on ``frames``: the
+reference's session behaves so.
 """
 from __future__ import annotations
 
@@ -35,16 +39,18 @@ class DecodeSessionStateObject(StateObject):
     """Tokens + cursor are the durable truth; the decode cache is derived.
 
     ``device=None`` runs on the card; pass ``device="cpu"`` for the CPU. The
-    parameters must already lie on that device."""
+    parameters must already lie on that device; ``extras`` are moved there."""
 
     def __init__(self, root: Path, cfg: ModelConfig, params, max_len: int = 64,
-                 device=None) -> None:
+                 extras: Optional[dict] = None, device=None) -> None:
         self.device = resolve_device(device)
         super().__init__()
         self.store = VersionStore(root)
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.extras = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in (extras or {}).items()}
         self.tokens: List[int] = []
         self._cache = self._empty_cache()
 
@@ -55,7 +61,8 @@ class DecodeSessionStateObject(StateObject):
     def _step(self, token: int, index: int) -> torch.Tensor:
         tok = torch.tensor([[token]], dtype=torch.int32, device=self.device)
         with torch.no_grad():
-            logits, self._cache = decode_step(self.cfg, self.params, self._cache, tok, index)
+            logits, self._cache = decode_step(self.cfg, self.params, self._cache, tok, index,
+                                              extras=self.extras)
         return logits
 
     def _rebuild_cache(self) -> None:
@@ -140,14 +147,16 @@ def run_speculative_serving(
     n_tokens: int = 16,
     kill_at: Optional[int] = None,
     group_commit_interval: float = 0.02,
+    extras: Optional[dict] = None,
     device=None,
 ) -> ServeRunResult:
     """``device=None`` runs on the card; pass ``device="cpu"`` (with the
-    parameters on the CPU) for the CPU."""
+    parameters on the CPU) for the CPU. ``extras`` feed every decode step."""
     dev = resolve_device(device)
     with LocalCluster(root, group_commit_interval=group_commit_interval) as cluster:
         mk = lambda: DecodeSessionStateObject(
-            Path(root) / "sess", cfg, params, max_len=max(64, n_tokens + 1), device=dev,
+            Path(root) / "sess", cfg, params, max_len=max(64, n_tokens + 1), extras=extras,
+            device=dev,
         )
         sess = cluster.add("session", mk)
         rollbacks = 0

@@ -4,7 +4,11 @@ step, three decode steps and the prefill step.
 
 Both sides start from the same weights: the JAX package initialises them and
 ``params_from_jax`` loads them into the port. Tokens come from numpy with a
-fixed seed; everything runs in f32 on the CPU, at the smoke configs.
+fixed seed; everything runs in f32 on the CPU, at the smoke configs. The
+encdec and vlm families get their extras as the reference's test feeds them
+(``_extras``), but drawn from a seeded generator rather than a constant, and
+the vlm's cross-block gates, 0 at init (which makes each cross block the
+identity), are set to seeded non-zero values before both sides load them.
 """
 from __future__ import annotations
 
@@ -50,12 +54,27 @@ DEFAULT_TOL = 1e-4
 def test_port_lists_the_reference_architectures_in_its_order():
     from repro.configs import ARCHITECTURES as REF
 
-    assert ARCHITECTURES == [a for a in REF if a in ARCHITECTURES]
-    assert ARCHITECTURES == ["yi_6b", "gemma_2b", "glm4_9b", "gemma3_4b", "zamba2_1p2b",
-                             "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "mamba2_370m"]
-    for alias in ("yi-6b", "glm4-9b", "gemma3-4b", "zamba2-1.2b", "granite-moe-3b-a800m",
-                  "deepseek-v2-lite-16b"):
+    assert ARCHITECTURES == REF
+    assert ARCHITECTURES == ["seamless_m4t_large_v2", "yi_6b", "gemma_2b", "glm4_9b",
+                             "gemma3_4b", "zamba2_1p2b", "granite_moe_3b_a800m",
+                             "deepseek_v2_lite_16b", "mamba2_370m", "llama_3p2_vision_90b"]
+    for alias in ("seamless-m4t-large-v2", "yi-6b", "glm4-9b", "gemma3-4b", "zamba2-1.2b",
+                  "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "llama-3.2-vision-90b"):
         assert port_get_config(alias).name == alias
+
+
+def _open_gates(tree, seed=0):
+    """numpy params; a vlm's cross-block gates set to seeded values of
+    magnitude 0.5-1.5 and random sign."""
+    out = jax.tree_util.tree_map(np.asarray, tree)
+    if "group_cross" in out:
+        rng = np.random.default_rng(seed)
+        gc = out["group_cross"]
+        for holder, key in ((gc["attn"], "gate"), (gc, "mlp_gate")):
+            shape = holder[key].shape
+            holder[key] = (rng.uniform(0.5, 1.5, shape) * rng.choice([-1.0, 1.0], shape)
+                           ).astype(np.float32)
+    return out
 
 
 @pytest.fixture(scope="module", params=ARCHITECTURES)
@@ -63,9 +82,26 @@ def arch(request):
     """The reference's config and params, the port's config and params."""
     name = request.param
     cfg = get_config(name, smoke=True)
-    jp = jax_init_params(jax_param_descs(cfg), jax.random.key(0), dtype=jnp.float32)
-    tp = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    init = _open_gates(jax_init_params(jax_param_descs(cfg), jax.random.key(0),
+                                       dtype=jnp.float32))
+    jp = jax.tree_util.tree_map(jnp.asarray, init)
+    tp = tm.params_from_jax(init, device="cpu")
     return name, cfg, jp, port_get_config(name, smoke=True), tp
+
+
+def _extras(cfg, batch=B, seed=9):
+    """The reference test's extras (tests/test_arch_smoke.py), drawn from a
+    seeded generator, with the std of an embedded token (rows of std
+    1/sqrt(vocab_padded), times sqrt(d_model) under gelu)."""
+    std = np.sqrt((cfg.d_model if cfg.activation == "gelu" else 1) / cfg.vocab_padded)
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        shape, key = (batch, cfg.source_len, cfg.d_model), "frames"
+    elif cfg.family == "vlm":
+        shape, key = (batch, cfg.num_image_tokens, cfg.d_model), "image_embeds"
+    else:
+        return {}
+    return {key: (rng.standard_normal(shape) * std).astype(np.float32)}
 
 
 def _tokens(cfg, shape, seed):
@@ -91,6 +127,8 @@ def test_param_descs_match_reference(arch, smoke):
 def test_full_config_parameter_counts():
     """The published widths: the counts chip_smoke.py runs at full width."""
     counts = {a: tm.param_count(tm.param_descs(port_get_config(a))) for a in ARCHITECTURES}
+    assert counts["seamless_m4t_large_v2"] == 2_038_555_648
+    assert counts["llama_3p2_vision_90b"] == 87_679_377_448
     assert counts["mamba2_370m"] == 421_709_312
     assert counts["gemma_2b"] == 2_506_172_416
     assert counts["gemma3_4b"] == 3_879_907_840
@@ -103,10 +141,12 @@ def test_full_config_parameter_counts():
 def test_forward_and_train_step_match_reference(arch):
     name, cfg, jp, tcfg, tp = arch
     tok = _tokens(cfg, (B, S + 1), seed=1)
-    logits_j, _, aux = jax_forward(cfg, jp, tok[:, :-1])
+    extras = _extras(cfg)
+    logits_j, _, aux = jax_forward(cfg, jp, tok[:, :-1], extras=extras)
     loss_j = jax_lm_loss(cfg, logits_j, tok[:, 1:], aux)
     with torch.no_grad():
-        logits_t, _, aux_t = tm.forward(tcfg, tp, torch.from_numpy(tok[:, :-1]))
+        logits_t, _, aux_t = tm.forward(tcfg, tp, torch.from_numpy(tok[:, :-1]),
+                                        extras={k: torch.from_numpy(v) for k, v in extras.items()})
     assert logits_t.shape == (B, S, tcfg.vocab_padded)
     want = np.asarray(logits_j)
     scale = np.abs(want).max()
@@ -118,9 +158,9 @@ def test_forward_and_train_step_match_reference(arch):
     assert (float(aux_t) > 0) == (tcfg.moe is not None)
     # one optimizer step on both sides, from the same state and batch
     step_j = jax.jit(jax_make_train_step(cfg, JaxAdamWConfig(lr=LR), remat="none"))
-    pj, _, lj = step_j(jp, jax_adamw_init(jp), {"tokens": tok})
+    pj, _, lj = step_j(jp, jax_adamw_init(jp), {"tokens": tok, **extras})
     pt, ot, lt = make_train_step(tcfg, AdamWConfig(lr=LR), remat="none")(
-        tp, adamw_init(tp), {"tokens": tok})
+        tp, adamw_init(tp), {"tokens": tok, **extras})
     np.testing.assert_allclose(float(lt), float(loss_j), rtol=1e-5)
     np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
     # the loss is a real LM loss: near log(vocab) at init
@@ -138,18 +178,29 @@ def test_forward_and_train_step_match_reference(arch):
 
 
 def test_decode_steps_match_reference(arch):
-    """Three greedy decode steps from an empty cache on both sides."""
+    """Three greedy decode steps from an empty cache on both sides; encdec's
+    cache first primed with the encoder output, as the reference's test
+    primes it."""
     name, cfg, jp, tcfg, tp = arch
+    extras = _extras(cfg)
     jcache = jax.tree_util.tree_map(lambda d: jnp.zeros(d.shape, jnp.float32),
                                     jax_cache_descs(cfg, batch=B, max_len=32),
                                     is_leaf=jax_is_desc)
     tcache = tm.zeros_from_descs(tm.cache_descs(tcfg, batch=B, max_len=32), device="cpu")
-    step_j = jax.jit(lambda p, c, t, i: jax_decode_step(cfg, p, c, t, i))
+    if cfg.family == "encdec":
+        zero = np.zeros((B, 1), np.int32)
+        _, jcache, _ = jax_forward(cfg, jp, zero, extras=extras, cache=jcache,
+                                   cache_index=jnp.asarray(0, jnp.int32))
+        with torch.no_grad():
+            tm.forward(tcfg, tp, torch.from_numpy(zero),
+                       extras={k: torch.from_numpy(v) for k, v in extras.items()},
+                       cache=tcache, cache_index=0)
+    step_j = jax.jit(lambda p, c, t, i: jax_decode_step(cfg, p, c, t, i, extras=extras))
     serve_step = make_serve_step(tcfg)
     tok = np.zeros((B, 1), np.int32)
     for i in range(3):
         lj, jcache = step_j(jp, jcache, jnp.asarray(tok), jnp.asarray(i, jnp.int32))
-        lt, new = serve_step(tp, tcache, {"tokens": tok}, i)
+        lt, new = serve_step(tp, tcache, {"tokens": tok, **extras}, i)
         assert new is tcache and lt.shape == (B, 1, tcfg.vocab_padded)
         want = np.asarray(lj)
         np.testing.assert_allclose(lt.numpy(), want, rtol=0,
@@ -162,12 +213,14 @@ def test_prefill_step_matches_reference(arch):
     prefill step and the port's own full forward."""
     name, cfg, jp, tcfg, tp = arch
     tok = _tokens(cfg, (B, S), seed=2)
-    want = np.asarray(jax.jit(jax_make_prefill_step(cfg))(jp, {"tokens": tok}))
-    got = make_prefill_step(tcfg)(tp, {"tokens": tok})
+    extras = _extras(cfg)
+    want = np.asarray(jax.jit(jax_make_prefill_step(cfg))(jp, {"tokens": tok, **extras}))
+    got = make_prefill_step(tcfg)(tp, {"tokens": tok, **extras})
     assert got.shape == (B, 1, tcfg.vocab_padded) == want.shape
     assert not got.requires_grad
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=LOGIT_TOL.get(name, DEFAULT_TOL) * np.abs(want).max())
     with torch.no_grad():
-        full = tm.forward(tcfg, tp, torch.from_numpy(tok))[0]
+        full = tm.forward(tcfg, tp, torch.from_numpy(tok),
+                          extras={k: torch.from_numpy(v) for k, v in extras.items()})[0]
     torch.testing.assert_close(got, full[:, -1:], rtol=0, atol=1e-6)

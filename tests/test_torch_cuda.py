@@ -479,3 +479,67 @@ def test_cuda_new_family_serving_equals_cpu(arch, tmp_path):
     assert len(cpu.durable_tokens) == 16 and card.durable_tokens == cpu.durable_tokens
     assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
     assert _launches() == before
+
+
+# --------------------------------------------------------------------------- #
+# the encdec and vlm families on the card                                     #
+# --------------------------------------------------------------------------- #
+def _with_extras(arch, batch):
+    """The smoke config, its params on the card (a vlm's cross-block gates,
+    0 at init, set to seeded values of magnitude 0.5-1.5 and random sign)
+    and seeded extras of the std of an embedded token for ``batch`` rows."""
+    cfg, params, _ = _smoke(arch)
+    rng = np.random.default_rng(3)
+    if cfg.family == "vlm":
+        gc = params["group_cross"]
+        for holder, key in ((gc["attn"], "gate"), (gc, "mlp_gate")):
+            shape = tuple(holder[key].shape)
+            vals = rng.uniform(0.5, 1.5, shape) * rng.choice([-1.0, 1.0], shape)
+            holder[key] = torch.from_numpy(vals.astype(np.float32)).cuda()
+    std = np.sqrt((cfg.d_model if cfg.activation == "gelu" else 1) / cfg.vocab_padded)
+    key, n = (("frames", cfg.source_len) if cfg.family == "encdec"
+              else ("image_embeds", cfg.num_image_tokens))
+    extras = {key: (rng.standard_normal((batch, n, cfg.d_model)) * std).astype(np.float32)}
+    return cfg, params, extras
+
+
+@pytest.mark.cuda
+def test_cuda_seamless_train_step_bit_identical_under_determinism(monkeypatch):
+    """Two calls of the seamless smoke train step (the encoder, the decoder's
+    cross-attention to it) from one state, under
+    torch.use_deterministic_algorithms(True): bit-identical loss and params."""
+    _cuda()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, params, extras = _with_extras("seamless_m4t_large_v2", 4)
+        batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 17)), **extras}
+        loss_a, pa = _train(cfg, params, batch)
+        loss_b, pb = _train(cfg, params, batch)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "llama_3p2_vision_90b"])
+def test_cuda_encdec_vlm_serving_equals_cpu(arch, tmp_path):
+    """The encdec and vlm smoke configs served on the card with their
+    extras: 16 tokens, failure-free and with a kill after 8, equal a CPU
+    run's from the same weights; no kernel is launched."""
+    from repro_torch.train import run_speculative_serving
+    from repro_torch.tree import tree_map
+
+    _cuda()
+    cfg, params, extras = _with_extras(arch, 1)
+    before = _launches()
+    card = run_speculative_serving(tmp_path / "card", cfg, params, n_tokens=16, extras=extras)
+    killed = run_speculative_serving(tmp_path / "kill", cfg, params, n_tokens=16, kill_at=8,
+                                     extras=extras)
+    cpu = run_speculative_serving(tmp_path / "cpu", cfg, tree_map(lambda t: t.cpu(), params),
+                                  n_tokens=16, extras=extras, device="cpu")
+    assert len(cpu.durable_tokens) == 16 and card.durable_tokens == cpu.durable_tokens
+    assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
+    assert _launches() == before

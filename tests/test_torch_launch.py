@@ -19,10 +19,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import checkpoint as jax_checkpoint  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.launch import train as jax_train  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models import param_descs as jax_param_descs  # noqa: E402
+from repro_torch import checkpoint as port_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
@@ -87,3 +89,32 @@ def test_mamba2_trains_through_failures(tmp_path, capsys):
     assert killed["params_digest"] == data.params_digest == base.params_digest
     assert sorted(s for s, _ in data.external_metrics) == list(range(6))
     assert all(np.isfinite(loss) for _, loss in base.external_metrics)
+
+
+@pytest.mark.parametrize("arch,extra", [("seamless-m4t-large-v2", "frames"),
+                                        ("llama-3.2-vision-90b", "image_embeds")])
+def test_cli_cannot_train_the_families_with_extras(arch, extra, tmp_path, monkeypatch, capsys):
+    """The loop feeds no frames or image embeddings, so both launchers fail
+    in the first train step with the same KeyError. Both trainers leave the
+    step's action open on that error and the cluster's shutdown then waits
+    for it without end; the test lets the action end so that the error
+    comes out."""
+    for cls in (jax_checkpoint.TrainerStateObject, port_checkpoint.TrainerStateObject):
+        train_on = cls.train_on
+
+        def closing(self, *a, _train_on=train_on, **kw):
+            try:
+                return _train_on(self, *a, **kw)
+            except Exception:
+                self.EndAction()
+                raise
+
+        monkeypatch.setattr(cls, "train_on", closing)
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--steps", "2",
+                                      "--out", str(tmp_path / "jax")])
+    with pytest.raises(KeyError, match=extra):
+        jax_train.main()
+    with pytest.raises(KeyError, match=extra):
+        port_train.main(["--arch", arch, "--steps", "2", "--out", str(tmp_path / "port"),
+                         "--device", "cpu"])
+    assert capsys.readouterr().out == ""

@@ -18,7 +18,8 @@ COPIED = sorted(
     + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py",
        "configs/mamba2_370m.py", "configs/yi_6b.py", "configs/glm4_9b.py", "configs/gemma3_4b.py",
        "configs/zamba2_1p2b.py", "configs/granite_moe_3b_a800m.py",
-       "configs/deepseek_v2_lite_16b.py"]
+       "configs/deepseek_v2_lite_16b.py", "configs/seamless_m4t_large_v2.py",
+       "configs/llama_3p2_vision_90b.py"]
 )
 
 
@@ -41,7 +42,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 26
+    assert len(COPIED) == 28
     assert all((PORT / rel).exists() for rel in COPIED)
 
 

@@ -237,19 +237,20 @@ def test_decode_step_refuses_what_it_cannot_do(setup):
                 tm.decode_step(cfg, tp, cache, tok, bad)
         assert not any(t.any() for t in tree_flatten(cache)[0])
         tm.decode_step(cfg, tp, cache, tok, MAX_LEN - 1)  # the last slot fits
-    # gemma3's local/global plan, the softcap, MoE, MLA and the hybrid are
-    # ported since (tests test_torch_gemma3.py, test_torch_tuning.py,
-    # test_torch_moe.py, test_torch_mla.py, test_torch_hybrid.py); the
-    # encdec and vlm families are not yet
-    for other in (dataclasses.replace(cfg, family="encdec"),
-                  dataclasses.replace(cfg, family="vlm")):
-        with pytest.raises(NotImplementedError, match="ported yet"):
-            tm.cache_descs(other, 1, MAX_LEN)
-        with pytest.raises(NotImplementedError, match="ported yet"):
-            tm.decode_step(other, tp, cache, tok, 0)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        port_attention({}, torch.zeros(1, 1, cfg.d_model), cfg, tok,
-                       cross_src=torch.zeros(1, 2, cfg.d_model))
+    # every family of the reference is ported (the encdec and vlm ones in
+    # tests/test_torch_encdec.py and test_torch_vlm.py); a family that
+    # neither package has is refused by both
+    other = dataclasses.replace(cfg, family="audio")
+    with pytest.raises(ValueError, match="audio"):
+        jax_cache_descs(other, 1, MAX_LEN)
+    with pytest.raises(KeyError, match="audio"):
+        jax_decode_step(other, {}, {}, jnp.zeros((1, 1), jnp.int32), jnp.asarray(0))
+    with pytest.raises(ValueError, match="unknown model family 'audio'"):
+        tm.cache_descs(other, 1, MAX_LEN)
+    with pytest.raises(ValueError, match="unknown model family 'audio'"):
+        tm.decode_step(other, tp, cache, tok, 0)
+    with pytest.raises(ValueError, match="unknown model family 'audio'"):
+        tm.forward(other, tp, tok)
 
 
 def test_session_replays_its_tokens_into_the_cache(setup, tmp_path):
