@@ -74,6 +74,19 @@ Phases, each printing its own line and raising on failure:
            against the f32 peak (operations by the reference's algorithm,
            _prefill_flops); the last-position logits equal the full forward's
            last row within 1e-5 of max |logit|
+  ep       granite-moe at full width through Tuning.moe_impl="ep" (the
+           index-based dispatch of parallel/ep_moe.py) on a world-of-one
+           NCCL mesh (file:// rendezvous in a temporary directory), against
+           the einsum dispatch: one MoE layer at 1 x 2048 tokens (same
+           capacity and drop order: EP_LAYER_TOL), median ms of each and the
+           EP route's device time by kernel; its gradients through
+           compress_gradients_int8, two steps, bit-equal to the CPU's; the
+           prefill at x32 timed both ways (TFLOP/s at _prefill_flops and at
+           EP's own count), held in float64 at the first
+           SERVE_CHECK_CUT layers (the random model is chaotic in f32 and,
+           at 32 layers, in float64); one train step at TRAIN_MOE_LAYERS
+           under remat "full": loss within EP_LOSS_TOL of the einsum
+           step's, two EP steps bit-identical
   serve    the speculative serving path (models decode_step, train/serve.py)
            at full width: gemma-2b x18, gemma3-4b x34, mamba2-370m x48,
            granite-moe x32, deepseek-v2-lite x27, zamba2 x38, seamless x24
@@ -131,11 +144,15 @@ import torch.utils.deterministic  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 RUN_DIR = HERE / "build" / "chip_smoke_run"
+sys.path.insert(0, str(HERE / "src"))
+
+from repro_torch.launch.mesh import H100_SXM  # noqa: E402
+
 #: H100 SXM HBM3 rate, f32 (non-tensor-core) and dense bf16 tensor-core
-#: peaks, NVIDIA's data sheet
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+#: peaks (NVIDIA's data sheet, by way of launch/mesh.py)
+HBM_BYTES_PER_S = H100_SXM["hbm_bw"]
+F32_OPS_PER_S = H100_SXM["peak_flops_f32"]
+BF16_OPS_PER_S = H100_SXM["peak_flops_bf16"]
 BLOCK = 1024
 #: mamba2-370m at full width: batch x sequence of the ssd and ssm phases
 SSM_BATCH, SSM_SEQ = 4, 2048
@@ -1591,11 +1608,207 @@ def phase_serve(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+#: the ep phase: one MoE layer, EP against the einsum dispatch (relative to
+#: max |y|). On a world of one both have the same capacity and drop order
+#: and differ only in how the combine rounds (1.6e-7 on an H100)
+EP_LAYER_TOL = 1e-5
+#: the ep phase's train step: its loss against the einsum step's, relative.
+#: The random granite is chaotic in f32: the combine's rounding parts the
+#: two routes' prefill logits by 2.8e-2 of max |logit| at 8 layers and 0.92
+#: at 16 on an H100 (PERF.md); the loss, a mean over 2048 positions,
+#: moved 1.7e-4 at 12 layers
+EP_LOSS_TOL = 1e-3
+
+
+def _held_rel(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max |got - want| / max |want|, which must be finite and within tol."""
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not bool(torch.isfinite(got).all()) or not rel <= tol:
+        raise AssertionError(f"{name}: {rel:.3e} of max |want| apart (tol {tol})")
+    return rel
+
+
+def _ep_moe_flops(cfg, seq: int) -> int:
+    """The EP dispatch's operations in one MoE layer of ``layers.moe``: the
+    router, the experts on every one of their C slots, the shared MLP (the
+    scatter and gather into the buckets move bytes, and do no products)."""
+    mo, d = cfg.moe, cfg.d_model
+    C = math.ceil(seq * mo.top_k / mo.num_experts * mo.capacity_factor)
+    return (2 * seq * d * mo.num_experts + 3 * 2 * mo.num_experts * C * d * mo.d_expert
+            + 2 * seq * 3 * d * mo.num_shared * mo.d_expert)
+
+
+def phase_ep(card: str) -> dict:
+    """granite-moe at full width through ``Tuning.moe_impl="ep"`` on a
+    world-of-one NCCL mesh, against the einsum dispatch: one MoE layer, a
+    prefill and a train step, and the int8 gradient compression on the card
+    against the CPU. Returns the kernels' launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_prefill_step, make_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, param_descs, tuning
+    from repro_torch.models.layers import moe, moe_descs
+    from repro_torch.optim import AdamWConfig, adamw_init, compress_gradients_int8
+    from repro_torch.parallel.ep_moe import ep_mesh
+    from repro_torch.tree import tree_flatten, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    cfg = get_config("granite_moe_3b_a800m")
+    rdzv = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_"))
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv", world_size=1, rank=0,
+                            device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_host_mesh(model=1)
+
+        def ep(fn):
+            with ep_mesh(mesh), tuning(moe_impl="ep"):
+                return fn()
+
+        # (a) one MoE layer at 1 x 2048 tokens, and its gradients compressed
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_params(moe_descs(cfg), gen, dtype=torch.float32, device="cuda")
+        x = torch.randn((1, PREFILL_SEQ, cfg.d_model), generator=gen, device="cuda")
+        with torch.no_grad():
+            y0, aux0 = moe(p, x, cfg)
+            y1, aux1 = ep(lambda: moe(p, x, cfg))
+            ms_e = median_ms(lambda: moe(p, x, cfg), 10)
+            ms_p = median_ms(lambda: ep(lambda: moe(p, x, cfg)), 10)
+            by_kernel = device_ms_by_kernel(lambda: ep(lambda: moe(p, x, cfg)))
+        rel = _held_rel("ep layer", y1, y0, EP_LAYER_TOL)
+        aux_rel = abs(float(aux1) - float(aux0)) / abs(float(aux0))
+        if aux_rel > EP_LAYER_TOL:
+            raise AssertionError(f"ep layer: aux {float(aux1)} vs the einsum's {float(aux0)}")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+        flops_e, flops_p = _moe_flops(cfg, PREFILL_SEQ), _ep_moe_flops(cfg, PREFILL_SEQ)
+        say("ep", f"{cfg.name} one MoE layer ({cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k}, d {cfg.d_model}, d_expert {cfg.moe.d_expert}), 1 x {PREFILL_SEQ} "
+            f"tokens, f32, world-of-one NCCL mesh: EP == einsum within {rel:.3e} of max |y| "
+            f"(tol {EP_LAYER_TOL}), aux within {aux_rel:.3e}; median of 10: einsum {ms_e:.4f} ms "
+            f"({flops_e / 1e9:.1f} GFLOP), EP {ms_p:.4f} ms ({flops_p / 1e9:.1f} GFLOP), "
+            f"{ms_e / ms_p:.3f}x; EP device ms {sum(by_kernel.values()):.4f}, the most "
+            + ", ".join(f"{k[:48]} {v:.4f}" for k, v in top) + f"; {card}")
+
+        leaves = tree_flatten(p)[0]
+        for t in leaves:
+            t.requires_grad_(True)
+        y = ep(lambda: moe(p, x, cfg))[0]
+        grads = dict(zip(("router", "w_down", "w_gate", "w_up"),
+                         torch.autograd.grad(y.square().sum(), leaves)))
+        ef_card = tree_map(torch.zeros_like, grads)
+        grads_cpu, ef_cpu = tree_map(lambda t: t.cpu(), grads), tree_map(lambda t: t.cpu(), ef_card)
+        for _ in range(2):  # two steps: the second adds the first's residual
+            out_card = compress_gradients_int8(grads, ef_card)
+            out_cpu = compress_gradients_int8(grads_cpu, ef_cpu)
+            ef_card, ef_cpu = out_card[2], out_cpu[2]
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(tree_flatten(out_card)[0],
+                                                               tree_flatten(out_cpu)[0])):
+                raise AssertionError("compress_gradients_int8 on the card differs from the CPU's")
+        ms_c = median_ms(lambda: compress_gradients_int8(grads, ef_card), 5)
+        n = sum(t.numel() for t in leaves)
+        say("ep", f"compress_gradients_int8 over the layer's {n:,} gradient values, two steps of "
+            f"error feedback: codes, scales, residuals bit-equal to the CPU's; {ms_c:.3f} ms on "
+            f"the card; {card}")
+        del p, x, y, y0, y1, leaves, grads, ef_card, grads_cpu, ef_cpu, out_card, out_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the prefill at the prefill phase's depth, held in float64 at the
+        # depth where the random model is not chaotic (SERVE_CHECK_CUT)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ), generator=gen,
+                                         device="cuda")}
+        step = make_prefill_step(cfg)
+        ms = {"einsum": median_ms(lambda: step(params, batch), 3),
+              "ep": median_ms(lambda: ep(lambda: step(params, batch)), 3)}
+        last = {"einsum": step(params, batch), "ep": ep(lambda: step(params, batch))}
+        for r, t in last.items():
+            if t.shape != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"ep prefill ({r}) logits {tuple(t.shape)}")
+        f32_rel = float((last["ep"] - last["einsum"]).abs().max() / last["einsum"].abs().max())
+        n_cut = SERVE_CHECK_CUT[cfg.name][0]
+        cut_cfg, cut = _cut(cfg, params, n_cut)
+        del params, last
+        gc.collect()
+        to_dtype(cut, torch.float64)
+        cut_step = make_prefill_step(cut_cfg)
+        f64_rel = _held_rel("ep prefill float64", ep(lambda: cut_step(cut, batch)),
+                            cut_step(cut, batch), SERVE_TOL["moe"])
+        del cut
+        flops = _prefill_flops(cfg, PREFILL_SEQ)
+        n_moe = cfg.num_layers - cfg.moe.first_k_dense
+        flops_ep = flops - n_moe * (_moe_flops(cfg, PREFILL_SEQ) - _ep_moe_flops(cfg, PREFILL_SEQ))
+        say("ep", f"prefill {cfg.name} x{cfg.num_layers}, 1 x {PREFILL_SEQ} tokens, f32, median of "
+            f"3 warmed calls: einsum {ms['einsum']:.2f} ms ({flops / ms['einsum'] / 1e9:.2f} "
+            f"TFLOP/s of {flops / 1e12:.3f} TFLOP, _prefill_flops), EP {ms['ep']:.2f} ms "
+            f"({flops / ms['ep'] / 1e9:.2f} TFLOP/s at that count; {flops_ep / ms['ep'] / 1e9:.2f}"
+            f" of its own {flops_ep / 1e12:.3f} TFLOP), {ms['einsum'] / ms['ep']:.3f}x; logits in "
+            f"f32 {f32_rel:.3e} of max |logit| apart (the chaotic random model, not held); in "
+            f"float64 at its first {n_cut} layers EP == einsum within {f64_rel:.3e} "
+            f"(tol {SERVE_TOL['moe']}); {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) one train step at TRAIN_MOE_LAYERS under remat "full"
+        c12 = dataclasses.replace(cfg, num_layers=TRAIN_MOE_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(param_descs(c12), gen, dtype=torch.float32, device="cuda")
+        opt = adamw_init(params)
+        batch = {"tokens": torch.randint(0, c12.vocab_size, (1, TRAIN_SEQ + 1), generator=gen,
+                                         device="cuda")}
+        train = make_train_step(c12, AdamWConfig(lr=1e-3), remat="full")
+        runs = {"einsum": lambda: train(params, opt, batch),
+                "ep": lambda: ep(lambda: train(params, opt, batch))}
+        times, out, peak = {r: [] for r in runs}, {}, 0
+        for r, fn in runs.items():
+            fn()  # warm up
+            for _ in range(2):
+                gc.collect()
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                new_p, _, loss = fn()
+                torch.cuda.synchronize()
+                times[r].append((time.perf_counter() - t0) * 1e3)
+                if r == "ep":
+                    peak = max(peak, torch.cuda.max_memory_allocated() - held)
+                out.setdefault(r, []).append((loss, tree_flatten(new_p)[0] if r == "ep" else []))
+                del new_p
+        (loss_a, p_a), (loss_b, p_b) = out["ep"]
+        if not (torch.equal(loss_a, loss_b) and all(torch.equal(u, v) for u, v in zip(p_a, p_b))):
+            raise AssertionError("two EP train steps from one state differ")
+        loss_e = out["einsum"][0][0]
+        loss_rel = abs(float(loss_a) - float(loss_e)) / abs(float(loss_e))
+        if not bool(torch.isfinite(loss_a)) or loss_rel > EP_LOSS_TOL:
+            raise AssertionError(f"EP train step loss {float(loss_a)} vs the einsum's "
+                                 f"{float(loss_e)}")
+        say("ep", f"train step {cfg.name} x{TRAIN_MOE_LAYERS}, 1 x {TRAIN_SEQ} tokens, f32, remat "
+            f"full: einsum {np.median(times['einsum']):.1f} ms, EP {np.median(times['ep']):.1f} "
+            f"ms ({np.median(times['einsum']) / np.median(times['ep']):.3f}x), EP peak "
+            f"{peak / 2**30:.2f} GiB above the state held; loss EP {float(loss_a):.6f} vs einsum "
+            f"{float(loss_e):.6f} ({loss_rel:.3e} relative, tol {EP_LOSS_TOL}); two EP steps "
+            f"bit-identical; {card}")
+        del params, opt, out, p_a, p_b
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ops.LAUNCHES)
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(HERE / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import delta_encode as k_delta
@@ -1653,6 +1866,7 @@ def main() -> int:
     paths["train_full_encdec"] = phase_train_full(seamless, card, policies=("full",))
     paths["prefill"] = phase_prefill(card, ("yi_6b", "glm4_9b", "gemma3_4b") + NEW_FAMILIES
                                      + CROSS_FAMILIES)
+    paths["ep"] = phase_ep(card)
     paths["serve"] = phase_serve(card)
     # every count was set to 0 just before each path and read just after it;
     # ``launches`` is each kernel's count on the path it was ported for

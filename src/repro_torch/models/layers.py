@@ -11,7 +11,8 @@ MLA (DeepSeek-V2 multi-head latent attention) caches the compressed
 ``(B, Smax, R)`` kv latent and the shared ``(B, Smax, P)`` rope key and
 expands them with the up-projections at every call, as the reference does.
 MoE is the reference's GShard one-hot einsum dispatch: deterministic, with
-no scatter in its forward or backward. Cross-attention (the encdec
+no scatter in its forward or backward; under ``Tuning.moe_impl="ep"`` and an
+EP mesh it takes the index-based dispatch of ``parallel/ep_moe.py``. Cross-attention (the encdec
 decoder's attention to the encoder output, the vlm's gated blocks over the
 image embeddings) projects K and V from ``cross_src``, with no rope, no
 mask and no cache: its K and V are projected again at every call, decode
@@ -304,9 +305,18 @@ def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     """(B, S, D) -> (out, aux_loss). Token groups of ``group_size`` bound the
     dispatch tensor to (G, Tg, E, C) (GShard section 3.2); each (token,
     slot) takes its place in its expert in (t, k) order and is dropped past
-    the capacity C. ``Tuning.moe_impl`` "ep" runs this dispatch too (see
-    ``tuning.py``)."""
+    the capacity C. Under ``Tuning.moe_impl="ep"`` and an EP mesh the routed
+    part goes through ``parallel/ep_moe.py`` instead (see ``tuning.py``)."""
     mo = cfg.moe
+    if get_tuning().moe_impl == "ep":
+        from ..parallel.ep_moe import ep_moe, get_ep_mesh
+
+        if get_ep_mesh() is not None:
+            out, aux = ep_moe({k: p[k] for k in ("router", "w_gate", "w_up", "w_down")}, x, cfg)
+            if mo.num_shared:
+                out = out + mlp(p["shared"], x, cfg.activation)
+            return out, aux
+
     E, k = mo.num_experts, mo.top_k
     B, S, D = x.shape
     T = B * S

@@ -13,16 +13,16 @@ baseline and tuned variants without touching model call signatures:
   constrain_activations — accepted, and read by nothing: the reference
       pins (B, S, D) activations to batch sharding at every block boundary;
   moe_impl — "einsum" (GShard grouped one-hot dispatch, ``layers.moe``) or
-      "ep" (expert parallelism over an all-to-all). The reference takes "ep"
-      only under an EP mesh (``parallel/ep_moe.py::get_ep_mesh``) and the
-      einsum dispatch without one; the port has no EP mesh until
-      ``parallel/ep_moe.py`` is ported (ROADMAP.md section 1), so "ep" runs
-      the einsum dispatch, as the reference does on a single device.
+      "ep" (the index-based dispatch with expert parallelism over an
+      all-to-all, ``parallel/ep_moe.py``). As in the reference, "ep" takes
+      that route only under an EP mesh (``ep_mesh(...)``, read by
+      ``get_ep_mesh``), a world of one included, and the einsum dispatch
+      without one; ``layers.moe`` adds the shared experts outside the route.
 
 The reference's ``constrain*`` helpers (``with_sharding_constraint`` under
 the ambient mesh, also applied to the decode cache and query under
-``decode_seq_constraint``) have no counterpart: the port runs on one card,
-where every tensor is whole on its device.
+``decode_seq_constraint``) have no counterpart: the port keeps every
+tensor whole on its device (``parallel/ep_moe.py`` slices its own).
 """
 from __future__ import annotations
 

@@ -543,3 +543,93 @@ def test_cuda_encdec_vlm_serving_equals_cpu(arch, tmp_path):
     assert len(cpu.durable_tokens) == 16 and card.durable_tokens == cpu.durable_tokens
     assert killed.rollbacks == 1 and killed.durable_tokens == card.durable_tokens
     assert _launches() == before
+
+
+# --------------------------------------------------------------------------- #
+# expert parallelism on a world of one, and gradient compression              #
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def nccl_world_of_one(tmp_path):
+    """A world-of-one NCCL group (file:// rendezvous) and its (1, 1) mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    _cuda()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv", world_size=1, rank=0,
+                            device_id=torch.device("cuda:0"))
+    try:
+        yield make_host_mesh(model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
+def test_cuda_ep_equals_einsum_on_a_world_of_one(nccl_world_of_one, arch):
+    """The EP route on the card (NCCL all-to-all of one rank): the einsum
+    dispatch's capacity and drop order, so y within 1e-5 of max |y|, the
+    aux within 1e-5 relative; no kernel of the port is launched."""
+    from repro_torch.models import tuning
+    from repro_torch.models.layers import moe
+    from repro_torch.parallel.ep_moe import ep_mesh
+
+    cfg, params, _ = _smoke(arch)
+    p = params["moe_layers" if "moe_layers" in params else "layers"]["moe"]
+    p = {k: (v[0] if k != "shared" else {n: t[0] for n, t in v.items()}) for k, v in p.items()}
+    x = torch.randn((2, 16, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    before = _launches()
+    with torch.no_grad():
+        y0, aux0 = moe(p, x, cfg)
+        with ep_mesh(nccl_world_of_one), tuning(moe_impl="ep"):
+            y1, aux1 = moe(p, x, cfg)
+    assert float((y1 - y0).abs().max()) <= 1e-5 * float(y0.abs().max())
+    assert abs(float(aux1) - float(aux0)) <= 1e-5 * abs(float(aux0))
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+def test_cuda_ep_train_steps_bit_identical_under_determinism(nccl_world_of_one, monkeypatch):
+    """Two granite smoke train steps through the EP route under
+    torch.use_deterministic_algorithms(True) (the scatter into the buckets,
+    and the index_put with accumulation that is the backward of the gather
+    back from them): bit-identical; the loss within 1e-5 of the einsum
+    step's."""
+    from repro_torch.parallel.ep_moe import ep_mesh
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, params, batch = _smoke("granite_moe_3b_a800m")
+        loss_e, _ = _train(cfg, params, batch)
+        with ep_mesh(nccl_world_of_one):
+            loss_a, pa = _train(cfg, params, batch, moe_impl="ep")
+            loss_b, pb = _train(cfg, params, batch, moe_impl="ep")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.isfinite(loss_a) and torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert abs(float(loss_a) - float(loss_e)) <= 1e-5 * abs(float(loss_e))
+
+
+@pytest.mark.cuda
+def test_cuda_compress_gradients_bit_equal_to_cpu():
+    """Three steps of int8 compression with error feedback on the card equal
+    the same calls on the CPU bit for bit (codes, scales, residuals)."""
+    from repro_torch.optim import compress_gradients_int8
+    from repro_torch.tree import tree_flatten, tree_map
+
+    _cuda()
+    rng = np.random.default_rng(0)
+    grads = [{"a": torch.from_numpy(rng.standard_normal((512, 384)).astype(np.float32)),
+              "b": torch.from_numpy((rng.standard_normal(1000) * 1e-3).astype(np.float32))}
+             for _ in range(3)]
+    ef_card = ef_cpu = tree_map(torch.zeros_like, grads[0])
+    ef_card = tree_map(lambda t: t.cuda(), ef_card)
+    for g in grads:
+        out_card = compress_gradients_int8(tree_map(lambda t: t.cuda(), g), ef_card)
+        out_cpu = compress_gradients_int8(g, ef_cpu)
+        ef_card, ef_cpu = out_card[2], out_cpu[2]
+        for a, b in zip(tree_flatten(out_card)[0], tree_flatten(out_cpu)[0]):
+            assert torch.equal(a.cpu(), b)

@@ -181,8 +181,9 @@ def test_moe_token_groups_past_group_size(layer):
 
 
 def test_moe_impl_ep_runs_the_einsum_dispatch(layer):
-    """No EP mesh exists in the port, so "ep" takes the einsum dispatch, as
-    the reference does without ``get_ep_mesh()``: bit-identical."""
+    """Without an EP mesh "ep" takes the einsum dispatch, as the reference
+    does without ``get_ep_mesh()``: bit-identical (the EP route under a mesh
+    is tests/test_torch_ep_moe.py's)."""
     _, tcfg, _, tp = layer
     x = torch.from_numpy(_x(tcfg, 2, 16))
     with torch.no_grad():
