@@ -109,6 +109,20 @@ Phases, each printing its own line and raising on failure:
            CPU run's from the same weights and extras (gemma3's 24 tokens
            wrap its window-8 rings). The serving path launches none of the
            kernels above
+  dryrun   the multi-pod dry run on the production mesh, in a subprocess:
+           python -m repro_torch.launch.dryrun --arch gemma-2b --shape
+           train_4k --mesh single (fake CUDA tensors as DTensors over a
+           256-rank fake process group; nothing allocated, no kernel
+           launched): the record's status (must be "ok"), its three roofline
+           terms, the seconds its trace took, and the kernel launches the
+           subprocess counted over the cell (its ``launches``, the dryrun
+           path's counts). Then the counter's calibration on
+           the card: OpCounter over yi-6b's make_prefill_step at 1 x 2048
+           tokens, f32, on plain tensors (a world of one): its dot TFLOP
+           beside _prefill_flops' analytic count, the roofline time of its
+           counts at the f32 peak and the HBM rate, and the measured
+           prefill ms (median of 3 warmed calls); no limit on the ratio;
+           its launches are the dryrun_calibration path's
 
 Then it prints the card's name and power limit, a JSON line with each
 kernel's numbers (at f32 inputs, and SSD and flash attention at bf16 too;
@@ -1805,6 +1819,80 @@ def phase_ep(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+DRYRUN_CELL = ("gemma-2b", "train_4k")
+DRYRUN_OUT = RUN_DIR / "dryrun"
+CALIBRATION_ARCH = "yi_6b"
+
+
+def phase_dryrun(card: str) -> tuple:
+    """The dry run's gemma-2b train_4k cell in a subprocess, then the
+    counter against the card on yi-6b's prefill. Returns the kernels'
+    launches of each: the subprocess's count over its cell (the dryrun
+    path) and this process's over the calibration."""
+    from repro_torch.analysis.aten_cost import OpCounter
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import init_params, param_descs
+
+    arch, shape = DRYRUN_CELL
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    cell = DRYRUN_OUT / "cell.jsonl"
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--mesh", "single", "--out", str(cell)],
+                         capture_output=True, text=True, timeout=600, cwd=str(HERE),
+                         env={**os.environ, "PYTHONPATH": str(HERE / "src")})
+    (DRYRUN_OUT / "stdout.txt").write_text(run.stdout)
+    (DRYRUN_OUT / "stderr.txt").write_text(run.stderr)
+    recs = [json.loads(line) for line in cell.read_text().splitlines()] if cell.exists() else []
+    briefs = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    if run.returncode != 0 or len(recs) != 1 or recs[0]["status"] != "ok" or len(briefs) != 1:
+        raise AssertionError(f"dry run of {arch} {shape}: rc {run.returncode}, records "
+                             f"{[r.get('status') for r in recs]}, {recs[0].get('error') if recs else ''}"
+                             f"\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    launches = briefs[0]["launches"]
+    assert set(launches) == set(ops.LAUNCHES), launches
+    rec = recs[0]
+    rf = rec["roofline"]
+    say("dryrun", f"{arch} {shape} on {rec['mesh']} ({rec['chips']} fake ranks, "
+        f"torch {torch.__version__}, in a subprocess; kernel launches {launches}): status "
+        f"{rec['status']}, traced in {rec['compile_s']} s; per card {rec['cost']['flops']:.4e} flops, "
+        f"{rec['cost']['bytes accessed']:.4e} bytes, {rec['collectives']['total']:.4e} wire "
+        f"bytes: compute {rf['compute_s']:.6f} s, memory {rf['memory_s']:.6f} s, collective "
+        f"{rf['collective_s']:.6f} s ({rf['dominant']}); HBM estimate "
+        f"{rec['memory_est']['hbm_fraction']:.4f} of 80 GB")
+
+    cfg = get_config(CALIBRATION_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ), generator=gen,
+                                     device="cuda")}
+    step = make_prefill_step(cfg)
+    ops.reset_launch_counts()
+    ms = median_ms(lambda: step(params, batch), 3)
+    with OpCounter() as counter:
+        step(params, batch)
+    torch.cuda.synchronize()
+    calibration = dict(ops.LAUNCHES)
+    flops, nbytes = counter.cost_dict()["flops"], counter.bytes_accessed
+    analytic = _prefill_flops(cfg, PREFILL_SEQ)
+    roof_ms, roof_by = bound_ms(nbytes, flops)
+    say("dryrun", f"calibration: {cfg.name} x{cfg.num_layers} make_prefill_step, 1 x "
+        f"{PREFILL_SEQ} tokens, f32, a world of one: counted {counter.dot_flops / 1e12:.4f} dot "
+        f"TFLOP ({counter.dot_flops / analytic:.4f} x _prefill_flops' {analytic / 1e12:.4f}), "
+        f"{counter.elementwise_flops / 1e12:.4f} elementwise TFLOP, {nbytes / 1e9:.3f} GB "
+        f"accessed (unfused); roofline {roof_ms:.2f} ms ({roof_by}, at 67 TFLOP/s f32 and 3.35 "
+        f"TB/s); measured {ms:.2f} ms (median of 3 warmed calls, {ms / roof_ms:.3f} x the "
+        f"roofline); {card}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, calibration
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1868,6 +1956,7 @@ def main() -> int:
                                      + CROSS_FAMILIES)
     paths["ep"] = phase_ep(card)
     paths["serve"] = phase_serve(card)
+    paths["dryrun"], paths["dryrun_calibration"] = phase_dryrun(card)
     # every count was set to 0 just before each path and read just after it;
     # ``launches`` is each kernel's count on the path it was ported for
     own = {"delta_encode": "trainer", "delta_decode": "trainer", "ssd": "ssm",

@@ -1,7 +1,9 @@
-"""The analytic cost model (port of ``repro/analysis``, its arithmetic
-part): the roofline terms and the per-card HBM estimate. The modules that
-read XLA's HLO (``hlo.py``, ``quad_probe.py``, ``report.py``) are not
-ported."""
+"""The cost model (port of ``repro/analysis``): the roofline terms, the
+per-card HBM estimate, the per-device operator counter beneath DTensor
+(``aten_cost.py``, the counterpart of ``hlo.py``, which reads XLA's HLO),
+the attention-quadratic probe (``quad_probe.py``) and the dry-run report
+(``report.py``, a copy)."""
+from .aten_cost import OpCounter, collective_wire_bytes
 from .roofline import model_flops, roofline_terms
 
-__all__ = ["model_flops", "roofline_terms"]
+__all__ = ["OpCounter", "collective_wire_bytes", "model_flops", "roofline_terms"]

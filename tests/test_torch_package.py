@@ -23,6 +23,13 @@ COPIED = sorted(
 )
 
 
+#: modules the port copies with one stated difference, the fits-in-HBM key of
+#: an H100's 80 GB for the TPU v5e's 16 GiB (and its own module path in the
+#: usage line): the substitutions that turn the original into the copy
+ADAPTED = {"analysis/report.py": [("fits_16g", "fits_hbm"), ("| fits |", "| fits 80 GB |"),
+                                  ("-m repro.analysis.", "-m repro_torch.analysis.")]}
+
+
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -60,6 +67,15 @@ def test_copied_module_has_not_drifted(rel):
     """Drift guard: a change to the protocol in repro/ must be carried to the
     port's copy (and vice versa), or this fails."""
     assert _normalised((PORT / rel).read_text()) == _normalised((REF / rel).read_text())
+
+
+@pytest.mark.parametrize("rel", sorted(ADAPTED))
+def test_adapted_copy_differs_only_as_stated(rel):
+    want = (REF / rel).read_text()
+    for old, new in ADAPTED[rel]:
+        assert old in want, old
+        want = want.replace(old, new)
+    assert _normalised((PORT / rel).read_text()) == _normalised(want)
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(tmp_path):
