@@ -104,20 +104,26 @@ Phases, each printing its own line and raising on failure:
            teacher-forced decode_step against one forward over 64 / 256
            tokens (1e-4 / 1e-3 of max |logit|; the checks of the families
            with attention in float64, see SERVE_TOL and SERVE_CHECK_CUT; MoE
-           at a capacity that drops no slot, _held). At the smoke configs
+           at a capacity that drops no slot, _held). The f32 decode that is
+           timed runs SERVE_TIMED steps where its result is printed, not
+           held (the families checked in float64). At the smoke configs
            of the ten architectures the tokens served on the card equal a
            CPU run's from the same weights and extras (gemma3's 24 tokens
            wrap its window-8 rings). The serving path launches none of the
            kernels above
-  dryrun   the multi-pod dry run on the production mesh, in a subprocess:
-           python -m repro_torch.launch.dryrun --arch gemma-2b --shape
-           train_4k --mesh single (fake CUDA tensors as DTensors over a
-           256-rank fake process group; nothing allocated, no kernel
-           launched): the record's status (must be "ok"), its three roofline
-           terms, the seconds its trace took, and the kernel launches the
-           subprocess counted over the cell (its ``launches``, the dryrun
-           path's counts). Then the counter's calibration on
-           the card: OpCounter over yi-6b's make_prefill_step at 1 x 2048
+  dryrun   the multi-pod dry run on the production mesh, in one
+           subprocess that runs the CLI (``repro_torch.launch.dryrun``,
+           --mesh single) on DRYRUN_CELLS: gemma-2b train_4k, mamba2-370m
+           prefill_32k (the cell whose plan lay furthest from GSPMD's) and gemma-2b
+           train_4k under --constrain-activations (fake CUDA tensors as
+           DTensors over a 256-rank fake process group; nothing allocated,
+           no kernel launched): each record's status (must be "ok"), its
+           three roofline terms, per-card flops, all-gathers and wire bytes
+           beside the figures of the earlier planner (DRYRUN_BEFORE), the seconds
+           its trace took, and the kernel launches the subprocess counted
+           over each cell (the dryrun path's counts, all 0, checked).
+           Then the counter's calibration on the card: OpCounter over
+           yi-6b's make_prefill_step at 1 x 2048
            tokens, f32, on plain tensors (a world of one): its dot TFLOP
            beside _prefill_flops' analytic count, the roofline time of its
            counts at the f32 peak and the HBM rate, and the measured
@@ -1217,6 +1223,9 @@ def phase_prefill(card: str, names) -> dict:
 #: width of the model, and 64 positions instead of zamba2's chunk of 256
 #: keep the phase within the script's time
 SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64, "encdec": 64, "vlm": 64}
+#: the f32 decode's steps where its logits are printed against the forward's,
+#: not held (the families checked in float64): 8 warm-up steps and 16 timed
+SERVE_TIMED = 24
 #: decode logits against the forward's, relative to max |logit|. gemma-2b's
 #: random weights make its attention a hard argmax (the init takes the
 #: fan-in of wq (D, N, H) as N, so the attention logits have a std near
@@ -1353,9 +1362,10 @@ def _serve_full(cfg, card: str) -> None:
     ext = extras_for(cfg, gen)
     held = _held(cfg)
 
-    def teacher_forced(p, dtype, c=held, e=ext):
-        """decode_step over the T tokens: the logits (1, T, V) and the ms of
-        each step, which ends in the host's argmax as a serving step does.
+    def teacher_forced(p, dtype, c=held, e=ext, n=T):
+        """decode_step over the first n of the T tokens: the logits (1, n, V)
+        and the ms of each step, which ends in the host's argmax as a
+        serving step does.
         An encdec cache first gets the encoder output from a forward with
         the cache, as the reference's tests prime it (a serving session
         decodes against the zeros of an empty cache instead)."""
@@ -1363,7 +1373,7 @@ def _serve_full(cfg, card: str) -> None:
         if c.family == "encdec":
             forward(c, p, tokens[:, :1], extras=e, cache=cache, cache_index=0)
         out, step_ms = [], []
-        for i in range(T):
+        for i in range(n):
             t0 = time.perf_counter()
             logits, cache = decode_step(c, p, cache, tokens[:, i: i + 1], i, extras=e)
             int(torch.argmax(logits[0, 0, : cfg.vocab_size]))
@@ -1376,16 +1386,18 @@ def _serve_full(cfg, card: str) -> None:
             raise AssertionError(f"decode logits {tuple(got.shape)}, forward {tuple(want.shape)}")
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
+    check = SERVE_CHECK_DTYPE[cfg.family]
+    n32 = T if check == torch.float32 else min(T, SERVE_TIMED)  # held over T in f32 only
     with torch.no_grad():
-        got, step_ms = teacher_forced(params, torch.float32)
+        got, step_ms = teacher_forced(params, torch.float32, n=n32)
         want = forward(held, params, tokens, extras=ext)[0]
-        rel32 = rel_diff(got, want)
+        rel32 = rel_diff(got, want[:, :n32])
         moe_note = ""
         if cfg.moe is not None:
             moe_note = (f"; the forward at the published capacity factor "
                         f"{cfg.moe.capacity_factor}, which drops (token, slot)s past an "
                         f"expert's capacity, differs from the f32 decode by "
-                        f"{rel_diff(got, forward(cfg, params, tokens)[0]):.3e}")
+                        f"{rel_diff(got, forward(cfg, params, tokens)[0][:, :n32]):.3e}")
         del got
         cache = zeros_from_descs(cache_descs(cfg, 1, 64), torch.float32, "cuda")
 
@@ -1417,7 +1429,7 @@ def _serve_full(cfg, card: str) -> None:
         active = (f"; the active-expert bound (top-{cfg.moe.top_k} of {cfg.moe.num_experts} "
                   f"experts, {a_params:,.0f} parameters) {a_params * 4 / HBM_BYTES_PER_S * 1e3:.3f}"
                   f" ms, which the one-hot dispatch does not reach: it reads every expert")
-    say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{T - 1} "
+    say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{n32 - 1} "
         f"({1e3 / ms:.1f} tokens/s); {bound}, {b_ms / ms:.1%} of it{active}; 8 warmed steps "
         f"under torch.profiler: device "
         f"time {dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
@@ -1465,7 +1477,6 @@ def _serve_full(cfg, card: str) -> None:
     del base, killed
     gc.collect()
 
-    check = SERVE_CHECK_DTYPE[cfg.family]
     cut, full64 = SERVE_CHECK_CUT.get(cfg.name, (None, True))
     note = ""
     with torch.no_grad():
@@ -1477,12 +1488,14 @@ def _serve_full(cfg, card: str) -> None:
                 p64 = tree_map(lambda t: t.to(check), params)
                 want64 = forward(held, p64, tokens, extras=e64)[0]
                 rel = rel_all = rel_diff(teacher_forced(p64, check, e=e64)[0], want64)
-                note = (f" (in f32 the two differ by {rel32:.3e}, and the f32 forward from a "
+                note = (f" (in f32 over {n32} tokens the two differ by {rel32:.3e}, and the "
+                        f"f32 forward from a "
                         f"float64 one by {rel_diff(want, want64):.3e}: rounding amplified by the "
                         f"random model, not held)")
                 del p64, want64
             else:
-                note = (f" (in f32 at all {cfg.num_layers} layers the two differ by {rel32:.3e}; "
+                note = (f" (in f32 at all {cfg.num_layers} layers over {n32} tokens the two "
+                        f"differ by {rel32:.3e}; "
                         f"float64 at all {cfg.num_layers} not run: see SERVE_CHECK_CUT)")
             if cut is not None:
                 c_cfg, c_p64 = _cut(held, params, cut)
@@ -1526,7 +1539,7 @@ def _seq_constraint_timing(cfg, params, tokens, card: str) -> None:
     (see SERVE_TOL)."""
     from repro_torch.models import cache_descs, decode_step, tuning, zeros_from_descs
 
-    n = 32
+    n = 24
     step_ms = {False: [], True: []}
     with torch.no_grad():
         for flag in (False, True, True, False):
@@ -1587,7 +1600,8 @@ def phase_serve(card: str) -> dict:
         f"{(time.perf_counter() - t0) * 1e3:.2f} us (mean of 1000); {card}")
     ops.reset_launch_counts()
     for name in SERVE_FULL:
-        _serve_full(on_card(name), card)
+        timed(f"serve {name}", _serve_full, on_card(name), card)
+    t0 = time.perf_counter()
     root = RUN_DIR / "serve_smoke"
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -1614,6 +1628,7 @@ def phase_serve(card: str) -> dict:
                 f"from the same weights{' and extras' * bool(ext)} {card_run.durable_tokens}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    say("time", f"phase serve smoke configs, card and CPU: {time.perf_counter() - t0:.1f} s")
     if any(ops.LAUNCHES.values()):
         raise AssertionError(f"the serving path launched a kernel: {ops.LAUNCHES}")
     say("serve", f"kernel launches on the serving path: {dict(ops.LAUNCHES)} (its reference "
@@ -1819,49 +1834,89 @@ def phase_ep(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-DRYRUN_CELL = ("gemma-2b", "train_4k")
+#: the dry run's cells on the 16 x 16 mesh: (arch, shape, variant, CLI flags)
+DRYRUN_CELLS = (("gemma-2b", "train_4k", "baseline", ()),
+                ("mamba2-370m", "prefill_32k", "baseline", ()),
+                ("gemma-2b", "train_4k", "tuned", ("--constrain-activations",)))
+#: each cell under the earlier planner, which left undivided dims replicated
+#: (PERF.md section 6):
+#: (per-card flops, all-gathers, wire bytes, where they were counted). The
+#: wire bytes differ between torch 2.11 (the card's machine) and 2.13 (the
+#: CPU), so each figure names its run
+DRYRUN_BEFORE = {
+    ("gemma-2b", "train_4k", "baseline"): (3.1530e14, 9, 3.5320e10,
+                                           "the card's machine, the earlier planner"),
+    ("mamba2-370m", "prefill_32k", "baseline"): (1.1400e13, 241, 6.5203e10,
+                                                 "the CPU, torch 2.13, the earlier planner"),
+    ("gemma-2b", "train_4k", "tuned"): (3.1530e14, 9, 3.7718e10,
+                                        "the CPU, torch 2.13, the earlier planner"),
+}
+#: runs the CLI once per cell in one process (each call makes and destroys
+#: its own fake process group; a failed cell exits 1)
+_DRYRUN_RUNNER = """
+import sys
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+for cell in sys.argv[2:]:
+    arch, shape, variant, *flags = cell.split(",")
+    dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single", "--variant", variant,
+                 "--out", out] + flags)
+"""
 DRYRUN_OUT = RUN_DIR / "dryrun"
 CALIBRATION_ARCH = "yi_6b"
 
 
 def phase_dryrun(card: str) -> tuple:
-    """The dry run's gemma-2b train_4k cell in a subprocess, then the
-    counter against the card on yi-6b's prefill. Returns the kernels'
-    launches of each: the subprocess's count over its cell (the dryrun
-    path) and this process's over the calibration."""
+    """The dry run's DRYRUN_CELLS in one subprocess, then the counter
+    against the card on yi-6b's prefill. Returns the kernels' launches of
+    each: the subprocess's count over its cells (the dryrun path, each 0)
+    and this process's over the calibration."""
     from repro_torch.analysis.aten_cost import OpCounter
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import make_prefill_step
     from repro_torch.models import init_params, param_descs
 
-    arch, shape = DRYRUN_CELL
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     DRYRUN_OUT.mkdir(parents=True)
-    cell = DRYRUN_OUT / "cell.jsonl"
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                          "--shape", shape, "--mesh", "single", "--out", str(cell)],
+    cells = DRYRUN_OUT / "cells.jsonl"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", _DRYRUN_RUNNER, str(cells)]
+                         + [",".join((a, s, v) + f) for a, s, v, f in DRYRUN_CELLS],
                          capture_output=True, text=True, timeout=600, cwd=str(HERE),
                          env={**os.environ, "PYTHONPATH": str(HERE / "src")})
+    secs = time.perf_counter() - t0
     (DRYRUN_OUT / "stdout.txt").write_text(run.stdout)
     (DRYRUN_OUT / "stderr.txt").write_text(run.stderr)
-    recs = [json.loads(line) for line in cell.read_text().splitlines()] if cell.exists() else []
+    recs = [json.loads(line) for line in cells.read_text().splitlines()] if cells.exists() else []
     briefs = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
-    if run.returncode != 0 or len(recs) != 1 or recs[0]["status"] != "ok" or len(briefs) != 1:
-        raise AssertionError(f"dry run of {arch} {shape}: rc {run.returncode}, records "
-                             f"{[r.get('status') for r in recs]}, {recs[0].get('error') if recs else ''}"
+    if (run.returncode != 0 or len(recs) != len(DRYRUN_CELLS) or len(briefs) != len(recs)
+            or any(r["status"] != "ok" for r in recs)):
+        raise AssertionError(f"dry run of {DRYRUN_CELLS}: rc {run.returncode}, records "
+                             f"{[(r.get('arch'), r.get('status'), r.get('error')) for r in recs]}"
                              f"\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-    launches = briefs[0]["launches"]
-    assert set(launches) == set(ops.LAUNCHES), launches
-    rec = recs[0]
-    rf = rec["roofline"]
-    say("dryrun", f"{arch} {shape} on {rec['mesh']} ({rec['chips']} fake ranks, "
-        f"torch {torch.__version__}, in a subprocess; kernel launches {launches}): status "
-        f"{rec['status']}, traced in {rec['compile_s']} s; per card {rec['cost']['flops']:.4e} flops, "
-        f"{rec['cost']['bytes accessed']:.4e} bytes, {rec['collectives']['total']:.4e} wire "
-        f"bytes: compute {rf['compute_s']:.6f} s, memory {rf['memory_s']:.6f} s, collective "
-        f"{rf['collective_s']:.6f} s ({rf['dominant']}); HBM estimate "
-        f"{rec['memory_est']['hbm_fraction']:.4f} of 80 GB")
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for brief in briefs:
+        assert set(brief["launches"]) == set(ops.LAUNCHES), brief["launches"]
+        for k, n in brief["launches"].items():
+            launches[k] += n
+    if any(launches.values()):
+        raise AssertionError(f"the dry run launched a kernel: {launches}")
+    for (arch, shape, variant, _), rec, brief in zip(DRYRUN_CELLS, recs, briefs):
+        rf, coll = rec["roofline"], rec["collectives"]
+        flops0, ag0, wire0, where0 = DRYRUN_BEFORE[(arch, shape, variant)]
+        say("dryrun", f"{rec['arch']} {rec['shape']} ({rec['variant']}) on {rec['mesh']} "
+            f"({rec['chips']} fake ranks, torch {torch.__version__}; kernel launches "
+            f"{brief['launches']}): status {rec['status']}, traced in {rec['compile_s']} s; per "
+            f"card {rec['cost']['flops']:.4e} flops ({rec['cost']['flops'] / flops0:.3f}x the "
+            f"{flops0:.4e} before), {coll.get('n_all-gather', 0)} all-gathers "
+            f"(before: {ag0}), {coll['total']:.4e} wire bytes (before: {wire0:.4e}; the before "
+            f"figures from {where0}); {rec['cost']['bytes accessed']:.4e} bytes: compute "
+            f"{rf['compute_s']:.6f} s, memory {rf['memory_s']:.6f} s, collective "
+            f"{rf['collective_s']:.6f} s ({rf['dominant']}); HBM estimate "
+            f"{rec['memory_est']['hbm_fraction']:.4f} of 80 GB")
+    say("dryrun", f"{len(recs)} cells in one subprocess in {secs:.1f} s; kernel launches on "
+        f"the dryrun path {launches} (all 0)")
 
     cfg = get_config(CALIBRATION_ARCH)
     gc.collect()
@@ -1891,6 +1946,14 @@ def phase_dryrun(card: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, calibration
+
+
+def timed(phase: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    say("time", f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1928,35 +1991,39 @@ def main() -> int:
     say("build", f"nvcc {' '.join(build.NVCC_FLAGS)}: all built in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    say("time", f"phase env and build: {time.perf_counter() - t_start:.1f} s")
     full = dataclasses.replace(get_config("gemma_2b"), num_layers=1)
     nb = -(-param_count(param_descs(full)) // BLOCK)
-    kern = phase_kernels(nb)
+    kern = timed("kernels", phase_kernels, nb)
 
     mamba = get_config("mamba2_370m")
-    ssd_res = phase_ssd(mamba)
-    paths = {"ssm": phase_ssm(mamba)}
-    flash_res, paths["flash"] = phase_flash(get_config("gemma_2b"))
+    ssd_res = timed("ssd", phase_ssd, mamba)
+    paths = {"ssm": timed("ssm", phase_ssm, mamba)}
+    flash_res, paths["flash"] = timed("flash", phase_flash, get_config("gemma_2b"))
 
     ops.reset_launch_counts()
-    phase_trainer(full)
+    timed("trainer", phase_trainer, full)
     paths["trainer"] = dict(ops.LAUNCHES)
     say("trainer", f"kernel launches on the main path: {paths['trainer']}")
 
-    phase_loop(get_config("gemma_2b", smoke=True))
-    paths["loop_mamba2_codec"] = phase_loop_ssm(get_config("mamba2_370m", smoke=True))
-    paths["loop_moe_mla_hybrid"] = phase_loop_families(NEW_FAMILIES)
-    paths["train_full"] = phase_train_full(mamba, card)
+    timed("loop", phase_loop, get_config("gemma_2b", smoke=True))
+    paths["loop_mamba2_codec"] = timed("loop_ssm", phase_loop_ssm,
+                                       get_config("mamba2_370m", smoke=True))
+    paths["loop_moe_mla_hybrid"] = timed("loop_families", phase_loop_families, NEW_FAMILIES)
+    paths["train_full"] = timed("train_full", phase_train_full, mamba, card)
     granite = dataclasses.replace(get_config("granite_moe_3b_a800m"), num_layers=TRAIN_MOE_LAYERS)
-    paths["train_full_moe"] = phase_train_full(granite, card, policies=("full",))
+    paths["train_full_moe"] = timed("train_full_moe", phase_train_full, granite, card,
+                                    policies=("full",))
     seamless = dataclasses.replace(get_config("seamless_m4t_large_v2"),
                                    num_layers=TRAIN_ENCDEC_LAYERS,
                                    encoder_layers=TRAIN_ENCDEC_LAYERS)
-    paths["train_full_encdec"] = phase_train_full(seamless, card, policies=("full",))
-    paths["prefill"] = phase_prefill(card, ("yi_6b", "glm4_9b", "gemma3_4b") + NEW_FAMILIES
-                                     + CROSS_FAMILIES)
-    paths["ep"] = phase_ep(card)
-    paths["serve"] = phase_serve(card)
-    paths["dryrun"], paths["dryrun_calibration"] = phase_dryrun(card)
+    paths["train_full_encdec"] = timed("train_full_encdec", phase_train_full, seamless, card,
+                                       policies=("full",))
+    paths["prefill"] = timed("prefill", phase_prefill, card, ("yi_6b", "glm4_9b", "gemma3_4b")
+                             + NEW_FAMILIES + CROSS_FAMILIES)
+    paths["ep"] = timed("ep", phase_ep, card)
+    paths["serve"] = timed("serve", phase_serve, card)
+    paths["dryrun"], paths["dryrun_calibration"] = timed("dryrun", phase_dryrun, card)
     # every count was set to 0 just before each path and read just after it;
     # ``launches`` is each kernel's count on the path it was ported for
     own = {"delta_encode": "trainer", "delta_decode": "trainer", "ssd": "ssm",

@@ -9,8 +9,18 @@ runs on its local shard. It returns ``NotImplemented`` for operators on
 counter sees the local operator once. It counts:
 
   * dot flops, 2·M·N·K, from ``torch.utils.flop_counter``'s formulas;
-  * elementwise flops, one per output element of a pointwise operator,
-    which approximates what XLA's ``HloCostAnalysis`` adds to "flops";
+  * elementwise flops, one per output element of a pointwise operator
+    and of a copy into another dtype (XLA's ``convert``), and one per input
+    element of a reduction, which approximates what XLA's
+    ``HloCostAnalysis`` adds to "flops" (a copy in the same dtype, such as
+    ``clone``, computes nothing);
+  * conversion flops, one per element of every bf16 input and output of
+    a product or a pointwise operator: XLA's CPU backend, where the
+    reference's counts are taken, computes bf16 work in f32 and its cost
+    analysis counts the ``convert`` it inserts on each side as a flop (a
+    bf16 multiply of n elements costs 3n there). An H100 computes bf16
+    natively, so these are kept apart: ``cost_dict()["flops"]`` includes
+    them, as XLA's does, and the dry run's roofline leaves them out;
   * bytes accessed, every tensor input and output of an operator that
     moves data (not a view, an allocation or a metadata query; unfused:
     XLA's fusions read and write less);
@@ -73,6 +83,14 @@ def _nbytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
+def _converts(name: str, args, out) -> bool:
+    """A copy into another dtype (XLA's ``convert``); a copy in the same
+    dtype computes nothing."""
+    return (name in ("_to_copy", "copy_") and isinstance(out, torch.Tensor)
+            and isinstance(args[-1 if name == "copy_" else 0], torch.Tensor)
+            and args[-1 if name == "copy_" else 0].dtype != out.dtype)
+
+
 def _group_size(func, args) -> int:
     """The size of the process group a collective runs over: its
     ``group_size`` argument where it has one, else its group's size."""
@@ -125,12 +143,13 @@ class OpCounter(TorchDispatchMode):
     """Counts the local operators of one device while active (see the
     module docstring). Use as a context manager; read ``dot_flops``,
     ``elementwise_flops``, ``bytes_accessed``, ``collectives`` and
-    ``cost_dict()``."""
+    ``conversion_flops``, ``cost_dict()``."""
 
     def __init__(self) -> None:
         super().__init__()
         self.dot_flops = 0
         self.elementwise_flops = 0
+        self.conversion_flops = 0
         self.bytes_accessed = 0
         self.collectives: List[Tuple[str, int, int]] = []
         self._paused = 0
@@ -173,15 +192,22 @@ class OpCounter(TorchDispatchMode):
         if func.is_view or ns == "prim" or name in _FREE:
             return
         formula = flop_registry.get(func.overloadpacket)
+        pointwise = torch.Tag.pointwise in func.tags and name != "clone"
         if formula is not None:
             self.dot_flops += int(formula(*args, **kwargs, out_val=out))
-        elif torch.Tag.pointwise in func.tags:
+        elif pointwise or _converts(name, args, out):
             self.elementwise_flops += sum(t.numel() for t in _tensors(out))
+        elif torch.Tag.reduction in func.tags:
+            self.elementwise_flops += sum(t.numel() for t in _tensors(args[:1]))
+        if formula is not None or pointwise:
+            self.conversion_flops += sum(t.numel() for t in _tensors(
+                list(args) + list(kwargs.values()) + [out]) if t.dtype == torch.bfloat16)
         self.bytes_accessed += _nbytes(list(args) + list(kwargs.values())) + _nbytes(out)
 
     def cost_dict(self) -> Dict[str, float]:
-        """The reference's ``cost_analysis`` keys, for ``roofline_terms``."""
-        return {"flops": float(self.dot_flops + self.elementwise_flops),
+        """The reference's ``cost_analysis`` keys ("flops" counts the
+        conversions, as XLA's does on the CPU)."""
+        return {"flops": float(self.dot_flops + self.elementwise_flops + self.conversion_flops),
                 "bytes accessed": float(self.bytes_accessed)}
 
 

@@ -205,9 +205,11 @@ def _trace_cell(cfg, shape, mesh, remat: str):
 
 def _cost_and_collectives(counter: OpCounter):
     """The counterpart of the reference's: ``cost`` with its "flops" and
-    "bytes accessed" (and the dot flops on their own), ``collectives`` as
-    per-device wire bytes."""
-    cost = {**counter.cost_dict(), "dot flops": float(counter.dot_flops)}
+    "bytes accessed" (and the dot flops and the conversion flops on their
+    own, see ``analysis/aten_cost.py``), ``collectives`` as per-device wire
+    bytes."""
+    cost = {**counter.cost_dict(), "dot flops": float(counter.dot_flops),
+            "conversion flops": float(counter.conversion_flops)}
     return cost, collective_wire_bytes(counter.collectives)
 
 
@@ -262,9 +264,11 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, remat: str = "full",
     rec["cost"] = cost
     rec["collectives"] = {k: round(v, 1) for k, v in coll.items()}
     rec["cost_method"] = "counted at full depth beneath DTensor (OpCounter, unfused)"
+    # the H100's work: bf16 computed natively, without the CPU's conversions
+    work = {**cost, "flops": cost["flops"] - cost["conversion flops"]}
     rec["roofline"] = {
         k: (round(v, 6) if isinstance(v, float) else v)
-        for k, v in roofline_terms(rec["cost"], rec["collectives"], cfg, shape, chips).items()
+        for k, v in roofline_terms(work, rec["collectives"], cfg, shape, chips).items()
     }
     return rec
 

@@ -1,9 +1,11 @@
 """Step-function builders (port of ``repro/launch/steps.py``).
 
 ``train_step`` is one optimizer step: forward, mean next-token loss plus
-the forward's MoE aux loss, gradients by autograd, then AdamW. ``prefill_step`` runs the full-sequence
-forward and emits the last token's logits. ``serve_step`` decodes one token
-against an explicit KV/state cache, updated in place. The tuning flags
+the forward's MoE aux loss, gradients by autograd (zero for a leaf the
+forward does not reach, as ``jax.grad`` gives), then AdamW.
+``prefill_step`` runs the full-sequence forward and emits the last token's
+logits. ``serve_step`` decodes one token against an explicit KV/state
+cache, updated in place. The tuning flags
 ``loss_chunk`` and ``microbatch`` are read from ``models.tuning`` when a
 train step runs, as in the reference. A batch is ``{"tokens": ...}`` and
 the family's extras (the encdec ``"frames"``, the vlm ``"image_embeds"``),
@@ -62,8 +64,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], aux, tun.loss_chunk)
                 else:
                     loss = lm_loss(cfg, out, tok[:, 1:], aux)
-                grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), grads
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the forward does not reach (zamba2's shared block below
+            # its first site) has a zero gradient, as under jax.grad
+            return loss.detach(), [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)]
 
         mb = tun.microbatch
         if mb > 1 and tokens.shape[0] % mb == 0:

@@ -26,9 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spmd import (gather_grad_to_merge, gather_to_merge, gather_uneven, prefer,
+                             shard_batch)
 from .config import ModelConfig
 from .params import PDesc
-from .tuning import get_tuning
+from .tuning import constrain_replicated_heads, constrain_seq_sharded, get_tuning
 
 F32 = torch.float32
 
@@ -138,8 +140,13 @@ def attention(
 
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     kv_in = cross_src if cross else x
-    k = torch.einsum("bsd,dnh->bsnh", kv_in, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", kv_in, p["wv"])
+    # under spmd the kv heads follow q's (GSPMD propagates them back
+    # through the repeat); a plain tensor is passed as it is
+    k = torch.einsum("bsd,dnh->bsnh", kv_in, prefer(p["wk"], 1, p["wq"], 1))
+    v = torch.einsum("bsd,dnh->bsnh", kv_in, prefer(p["wv"], 1, p["wq"], 1))
+    # under spmd attention runs on the batch's shards (GSPMD scatters the
+    # FSDP products there); plain tensors as they are
+    q, k, v = shard_batch(q), shard_batch(k), shard_batch(v)
     if not cross:
         pos = positions[:, None, :]
         q = rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
@@ -152,6 +159,11 @@ def attention(
         idx = cache_index % smax if ring else cache_index
         _write_cache(cache, idx, k=k, v=v)
         k, v = cache["k"], cache["v"]
+        if flash_decode:
+            # the reference's flash-decode sharding (DTensors only): K/V stay
+            # sequence-sharded, q replicated over "model"
+            k, v = constrain_seq_sharded(k, 1), constrain_seq_sharded(v, 1)
+            q = constrain_replicated_heads(q)
         mask = _cache_mask(smax, cache_index, idx, window, ring, x.device)
     else:
         mask = None
@@ -173,6 +185,7 @@ def attention(
         out = torch.einsum("bngst,btnh->bsngh", probs, v).reshape(B, S, nq, hd)
         return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), cache
     if groups > 1:  # jnp.repeat(k, groups, axis=2); backward is a plain sum
+        k, v = gather_uneven(k, 2), gather_uneven(v, 2)
         T = k.shape[1]
         k = k[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nq, hd)
         v = v[:, :, :, None].expand(B, T, nkv, groups, hd).reshape(B, T, nq, hd)
@@ -322,7 +335,7 @@ def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     T = B * S
     tg = min(group_size, T)
     G = T // tg
-    xf = x.reshape(G, tg, D)
+    xf = gather_to_merge(x, 0, 2).reshape(G, tg, D)  # a plain tensor as it is
 
     logits = torch.einsum("gtd,de->gte", xf, p["router"]).to(_at_least_f32(x.dtype))
     probs = torch.softmax(logits, dim=-1)
@@ -342,19 +355,22 @@ def moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, tg, k, E)
     pos_sel = torch.gather(pos, -1, ids[..., None])[..., 0]         # (G,tg,k), no gradient
     keep = (pos_sel < capacity).to(x.dtype)
-    oh_e = _one_hot(ids, E, x.dtype) * keep[..., None]
+    # under spmd the dispatch is sharded over the experts as the expert
+    # weights are (GSPMD propagates it back); a plain tensor as it is
+    oh_e = prefer(_one_hot(ids, E, x.dtype) * keep[..., None], 3, p["w_gate"], 0)
     oh_c = _one_hot(pos_sel, capacity, x.dtype)                      # (G,tg,k,C); overflow: 0
     # contract k: never materialises the 5-D (t, k, E, C) tensor
     dispatch = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)
     combine = torch.einsum("gtk,gtke,gtkc->gtec", gate_w.to(x.dtype), oh_e, oh_c)
 
+    # the shared experts first: the combine below is then the block's last
+    # product, which a remat recompute stops before (XLA drops it too)
+    shared = mlp(p["shared"], x, cfg.activation) if mo.num_shared else None
     xin = torch.einsum("gtec,gtd->gecd", dispatch, xf)              # (G,E,C,D)
     gate = torch.einsum("gecd,edf->gecf", xin, p["w_gate"])
     gate = F.gelu(gate, approximate="tanh") if cfg.activation == "gelu" else F.silu(gate)
     h = gate * torch.einsum("gecd,edf->gecf", xin, p["w_up"])
     xout = torch.einsum("gecf,efd->gecd", h, p["w_down"])          # (G,E,C,D)
-    out = torch.einsum("gtec,gecd->gtd", combine, xout).reshape(B, S, D)
-
-    if mo.num_shared:
-        out = out + mlp(p["shared"], x, cfg.activation)
-    return out, aux
+    out = gather_grad_to_merge(torch.einsum("gtec,gecd->gtd", combine, xout).reshape(B, S, D),
+                               0, 2)
+    return (out if shared is None else out + shared), aux

@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spmd import (channelwise, chunk_blocks, gather_dims, gather_to_split,
+                             is_sharded, prefer)
 from .config import ModelConfig
 from .params import PDesc
 
@@ -73,6 +75,18 @@ def _segsum(dA: torch.Tensor) -> torch.Tensor:
     return torch.where(j <= i, diff, torch.full_like(diff, float("-inf")))
 
 
+def _recurrence(Bx: torch.Tensor, chunk_decay: torch.Tensor,
+                state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk states seen by each chunk's queries (B,nc,H,P,N) from the
+    chunks' own Bx (B,nc,H,P,N), their decays (B,nc,H) and the state
+    before the first chunk (B,H,P,N); and the state after the last."""
+    prev = []
+    for c in range(Bx.shape[1]):
+        prev.append(state)  # the state seen by this chunk's queries
+        state = state * chunk_decay[:, c, :, None, None] + Bx[:, c]
+    return torch.stack(prev, dim=1), state
+
+
 def ssd_chunked(
     x: torch.Tensor,      # (B, S, H, P)
     dt: torch.Tensor,     # (B, S, H)  (post-softplus)
@@ -81,8 +95,12 @@ def ssd_chunked(
     Cm: torch.Tensor,     # (B, S, G, N)
     chunk: int = 256,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P), final_state (B,H,P,N))."""
+    final_state: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (y (B,S,H,P), final_state (B,H,P,N)). With ``final_state``
+    False and one chunk, no chunk state is formed (y never reads it) and
+    the state returned is None, as XLA drops the dead state of the
+    reference's prefill and train steps."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -91,6 +109,10 @@ def ssd_chunked(
         raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
     nc = S // chunk
 
+    # under spmd a sequence sharded across chunk boundaries moves its shard
+    # to the heads (x, dt) and the state (B, C)
+    x, dt = gather_to_split(x, 1, chunk, to=2), gather_to_split(dt, 1, chunk, to=2)
+    Bm, Cm = gather_to_split(Bm, 1, chunk, to=3), gather_to_split(Cm, 1, chunk, to=3)
     xr = x.reshape(Bsz, nc, chunk, H, P)
     dtr = dt.reshape(Bsz, nc, chunk, H)
     Br = Bm.reshape(Bsz, nc, chunk, G, N)
@@ -104,26 +126,26 @@ def ssd_chunked(
     gate = (CB * Lmat).to(x.dtype)
     y_diag = torch.einsum("bchls,bcsh,bcshp->bclhp", gate, dtr.to(x.dtype), xr)
 
-    # chunk states: decay-to-chunk-end weighted outer products
     dA_cum = torch.cumsum(dA, dim=2)                            # (B,nc,L,H)
-    decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)     # (B,nc,L,H)
-    Bh = torch.repeat_interleave(Br, rep, dim=3)                # (B,nc,L,H,N)
-    Bx = torch.einsum(
-        "bclhn,bclh,bclhp->bchpn",
-        Bh.to(W),
-        (dtr * decay_to_end).to(W),
-        xr.to(W),
-    )  # (B,nc,H,P,N)
-
-    # inter-chunk recurrence over chunk states
-    chunk_decay = torch.exp(torch.sum(dA, dim=2))               # (B,nc,H)
     state = (torch.zeros((Bsz, H, P, N), dtype=W, device=x.device)
              if initial_state is None else initial_state.to(W))
-    prev = []
-    for c in range(nc):
-        prev.append(state)  # the state seen by this chunk's queries
-        state = state * chunk_decay[:, c, :, None, None] + Bx[:, c]
-    prev_states = torch.stack(prev, dim=1)                      # (B,nc,H,P,N)
+    if nc == 1 and not final_state:
+        prev_states, state = state[:, None], None
+    else:
+        # chunk states: decay-to-chunk-end weighted outer products
+        decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)  # (B,nc,L,H)
+        Bh = torch.repeat_interleave(Br, rep, dim=3)            # (B,nc,L,H,N)
+        Bx = torch.einsum(
+            "bclhn,bclh,bclhp->bchpn",
+            Bh.to(W),
+            (dtr * decay_to_end).to(W),
+            xr.to(W),
+        )  # (B,nc,H,P,N)
+
+        # inter-chunk recurrence over chunk states (under spmd on each
+        # device's block, the chunks gathered once)
+        chunk_decay = torch.exp(torch.sum(dA, dim=2))           # (B,nc,H)
+        prev_states, state = chunk_blocks(_recurrence, Bx, chunk_decay, state)
 
     # inter-chunk contribution: y += C_t · decayed prev chunk state
     in_decay = torch.exp(dA_cum)                                # (B,nc,L,H)
@@ -173,31 +195,47 @@ def mamba2_mixer(
 
     z = torch.einsum("bsd,di->bsi", x, p["w_z"])
     xs = torch.einsum("bsd,di->bsi", x, p["w_x"])
-    Bm = torch.einsum("bsd,dg->bsg", x, p["w_B"])
-    Cm = torch.einsum("bsd,dg->bsg", x, p["w_C"])
+    # under spmd B, C and dt are computed sharded as the heads are (GSPMD
+    # propagates the heads' sharding back into them); plain tensors as they are
+    Bm = torch.einsum("bsd,dg->bsg", x, prefer(p["w_B"], 1, p["w_x"], 1))
+    Cm = torch.einsum("bsd,dg->bsg", x, prefer(p["w_C"], 1, p["w_x"], 1))
     dt = F.softplus(
-        torch.einsum("bsd,dh->bsh", x, p["w_dt"]).to(W) + p["dt_bias"].to(W)
+        torch.einsum("bsd,dh->bsh", x, prefer(p["w_dt"], 1, p["w_x"], 1)).to(W)
+        + p["dt_bias"].to(W)
     )
     A = -torch.exp(p["A_log"].to(W))
 
-    xbc = torch.cat([xs, Bm, Cm], dim=-1)                       # (B,S,C)
     new_cache = None
-    if cache is None:
-        xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    parts = ((0, di), (di, di + gn), (di + gn, di + 2 * gn))      # xs, B, C channels
+    if cache is None and is_sharded(xs):
+        # the depthwise conv of each part on its own, the same numbers as
+        # the conv of their concatenation: a sharded xs stays sharded
+        # (DTensor would gather the concatenation of differently sharded
+        # parts), and so do the heads of the scan. Each part runs on its
+        # devices' blocks, gathered over the sequence (GSPMD exchanges
+        # halos), with the weights gathered once
+        w, bias = gather_dims(p["conv_w"]), gather_dims(p["conv_b"])
+        xs, Bm, Cm = (F.silu(channelwise(_causal_conv, t, w[:, a:b], bias[a:b]))
+                      for t, (a, b) in zip((xs, Bm, Cm), parts))
     else:
-        k = s.d_conv
-        window = torch.cat([cache["conv"], xbc], dim=1)         # (B,K-1+S,C)
-        conv_out = torch.einsum("bkc,kc->bc", window[:, -k:], p["conv_w"]) + p["conv_b"]
-        xbc = F.silu(conv_out)[:, None]                         # (B,1,C)
-        new_conv = window[:, -(k - 1):]
-
-    xs = xbc[..., :di].reshape(B, S, nh, s.head_dim)
-    Bm = xbc[..., di: di + gn].reshape(B, S, s.n_groups, s.d_state)
-    Cm = xbc[..., di + gn:].reshape(B, S, s.n_groups, s.d_state)
+        xbc = torch.cat([xs, Bm, Cm], dim=-1)                   # (B,S,C)
+        if cache is None:
+            xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        else:
+            k = s.d_conv
+            window = torch.cat([cache["conv"], xbc], dim=1)     # (B,K-1+S,C)
+            conv_out = torch.einsum("bkc,kc->bc", window[:, -k:], p["conv_w"]) + p["conv_b"]
+            xbc = F.silu(conv_out)[:, None]                     # (B,1,C)
+            new_conv = window[:, -(k - 1):]
+        xs, Bm, Cm = (xbc[..., a:b] for a, b in parts)
+    xs = xs.reshape(B, S, nh, s.head_dim)
+    Bm = Bm.reshape(B, S, s.n_groups, s.d_state)
+    Cm = Cm.reshape(B, S, s.n_groups, s.d_state)
 
     if cache is None:
-        run = ssd_impl or ssd_chunked
-        y, _state = run(xs, dt.to(x.dtype), A.to(W), Bm, Cm, s.chunk_size)
+        args = (xs, dt.to(x.dtype), A.to(W), Bm, Cm, s.chunk_size)
+        # the final state is not used here
+        y = ssd_impl(*args)[0] if ssd_impl else ssd_chunked(*args, final_state=False)[0]
     else:
         y, new_state = ssd_decode_step(xs, dt.to(W), A, Bm, Cm, cache["state"])
         new_cache = {"conv": new_conv, "state": new_state}

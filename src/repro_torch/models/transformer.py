@@ -66,7 +66,7 @@ from .layers import (attention, attn_descs, mla_attention, mla_descs, mlp, mlp_d
                      moe_descs, rms_norm)
 from .params import PDesc, stack_tree
 from .ssm import mamba2_mixer, ssm_descs
-from .tuning import get_tuning
+from .tuning import constrain_batch_sharded, get_tuning
 
 F32 = torch.float32
 
@@ -245,6 +245,7 @@ def _block_apply(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions: torch.T
     """One block -> (x, its MoE aux loss or None); with a cache, its
     per-layer views are updated in place. A "cross" block attends to
     ``cross_src`` and keeps no cache."""
+    x = constrain_batch_sharded(x)  # a no-op unless tuned, and on plain tensors
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         out, new = mamba2_mixer(lp["mixer"], h, cfg, cache=cache)

@@ -25,6 +25,9 @@ package's ring factors, and against single-device results.
     a sequence-sharded cache within 1e-5. The models run in float64: the
     random smoke gemma models amplify f32 rounding past 1e-5 over a few
     layers, and the test is of the partitioning, not of f32 arithmetic;
+    the same three checks on a (1, 4) mesh where "model" does not divide
+    the heads (yi-6b's smoke with 6 query and 2 kv heads) and through the
+    SSD rules (mamba2 and zamba2);
   * ``spmd`` refuses to nest and restores what it patched; an index outside
     the indexed dim raises, as torch's own indexing does, on a DTensor too.
 
@@ -200,7 +203,7 @@ def test_an_index_out_of_range_raises_on_a_dtensor(fake_world, sharded, bad):
 ARCHS = ("gemma_2b", "yi_6b", "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
          "mamba2_370m", "zamba2_1p2b", "seamless_m4t_large_v2", "llama_3p2_vision_90b")
 _RANKS = r'''
-import os, sys
+import dataclasses, json, os, sys
 import numpy as np
 import torch, torch.distributed as dist, torch.multiprocessing as mp
 
@@ -219,7 +222,11 @@ def rank_main(rank, out, world):
     dist.init_process_group("gloo", init_method=f"file://{out}/rdv", rank=rank,
                             world_size=world)
     try:
-        mesh = make_host_mesh(model=2, device_type="cpu")
+        # argv[3]: the "model" mesh size (2 unless given); argv[4]: per name,
+        # the architecture and the config fields that replace its smoke ones
+        mesh = make_host_mesh(model=int(sys.argv[3]) if len(sys.argv) > 3 else 2,
+                              device_type="cpu")
+        over = json.loads(sys.argv[4]) if len(sys.argv) > 4 else {}
         inp = np.load(os.path.join(out, "inputs.npz"))
         res = {}
 
@@ -239,7 +246,8 @@ def rank_main(rank, out, world):
                                        for t, p in zip(leaves, pls)])
 
         for arch in sys.argv[2].split(","):
-            cfg = get_config(arch, smoke=True)
+            base, fields = over.get(arch, (arch, {}))
+            cfg = dataclasses.replace(get_config(base, smoke=True), **fields)
             descs = param_descs(cfg)
             n = len(tree_flatten(descs)[0])
             params = tree_unflatten(tree_flatten(descs)[1],
@@ -295,19 +303,35 @@ if __name__ == "__main__":
 '''
 
 
-@pytest.fixture(scope="module")
-def four_ranks(tmp_path_factory):
-    """Seeded float64 params, tokens and extras per architecture (the vlm's
-    gates seeded non-zero, as they are 0 at init); the four ranks' results
-    (rank 0's gathered tensors)."""
+#: smoke configs whose sharded dims do not divide "model" = 4 on a (1, 4)
+#: mesh: 6 query heads (replicated) over 2 kv heads (sharded unevenly, as
+#: GSPMD shards them 2-way), and the SSD families (B/C, dt and the heads
+#: sharded with the conv split per part): name -> (architecture, fields)
+UNEVEN = {"yi_6b_6q2kv": ("yi_6b", {"num_heads": 6, "num_kv_heads": 2, "head_dim": 16}),
+          "mamba2_370m": ("mamba2_370m", {}), "zamba2_1p2b": ("zamba2_1p2b", {})}
+
+
+def _smoke(name):
+    import dataclasses
+
+    base, fields = UNEVEN.get(name, (name, {}))
+    return dataclasses.replace(get_config(base, smoke=True), **fields)
+
+
+def _run_ranks(out, names, model=2):
+    """Seeded float64 params, tokens and extras per name (the vlm's gates
+    seeded non-zero, as they are 0 at init), and the four ranks' results on
+    a ("data", "model") = (4 / model, model) mesh (rank 0's gathered
+    tensors)."""
+    import json
+
     from repro_torch.models import init_params, param_descs
     from repro_torch.tree import tree_flatten
 
-    out = tmp_path_factory.mktemp("spmd4")
     inputs = {}
     rng = np.random.default_rng(7)
-    for seed, arch in enumerate(ARCHS):
-        cfg = get_config(arch, smoke=True)
+    for seed, arch in enumerate(names):
+        cfg = _smoke(arch)
         params = init_params(param_descs(cfg), torch.Generator().manual_seed(seed),
                              dtype=torch.float64, device="cpu")
         if cfg.family == "vlm":
@@ -325,10 +349,24 @@ def four_ranks(tmp_path_factory):
     np.savez(out / "inputs.npz", **inputs)
     (out / "ranks.py").write_text(_RANKS)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    run = subprocess.run([sys.executable, str(out / "ranks.py"), str(out), ",".join(ARCHS)],
+    over = {n: UNEVEN[n] for n in names if n in UNEVEN}
+    run = subprocess.run([sys.executable, str(out / "ranks.py"), str(out), ",".join(names),
+                          str(model), json.dumps(over)],
                          capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
     assert "SPMD-RANKS-OK" in run.stdout, run.stderr[-4000:]
     return inputs, dict(np.load(out / "ranks.npz"))
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """Every architecture's smoke config on a (2, 2) mesh (``_run_ranks``)."""
+    return _run_ranks(tmp_path_factory.mktemp("spmd4"), ARCHS)
+
+
+@pytest.fixture(scope="module")
+def four_ranks_uneven(tmp_path_factory):
+    """The ``UNEVEN`` configs on a (1, 4) mesh (``_run_ranks``)."""
+    return _run_ranks(tmp_path_factory.mktemp("spmd4u"), list(UNEVEN), model=4)
 
 
 def _rel(got, want) -> float:
@@ -341,7 +379,7 @@ def _single_device(arch, inputs):
     from repro_torch.models import param_descs
     from repro_torch.tree import tree_flatten, tree_unflatten
 
-    cfg = get_config(arch, smoke=True)
+    cfg = _smoke(arch)
     descs = param_descs(cfg)
     leaves, td = tree_flatten(descs)
     params = tree_unflatten(td, [torch.from_numpy(inputs[f"{arch}/p/{i}"])
@@ -353,6 +391,10 @@ def _single_device(arch, inputs):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_four_gloo_ranks_forward_equals_one_device(four_ranks, arch):
+    _check_forward(four_ranks, arch)
+
+
+def _check_forward(four_ranks, arch):
     from repro_torch.models import forward
 
     inputs, ranks = four_ranks
@@ -364,6 +406,10 @@ def test_four_gloo_ranks_forward_equals_one_device(four_ranks, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_four_gloo_ranks_gradients_equal_one_device(four_ranks, arch):
+    _check_gradients(four_ranks, arch)
+
+
+def _check_gradients(four_ranks, arch):
     from repro_torch.models import forward, lm_loss
     from repro_torch.tree import tree_flatten, tree_unflatten
 
@@ -382,6 +428,10 @@ def test_four_gloo_ranks_gradients_equal_one_device(four_ranks, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_four_gloo_ranks_decode_into_a_sharded_cache(four_ranks, arch):
+    _check_decode(four_ranks, arch)
+
+
+def _check_decode(four_ranks, arch):
     from repro_torch.models import cache_descs, decode_step, zeros_from_descs
     from repro_torch.tree import tree_flatten
 
@@ -396,6 +446,17 @@ def test_four_gloo_ranks_decode_into_a_sharded_cache(four_ranks, arch):
     assert _rel(ranks[f"{arch}/decode"], lg.numpy()) <= 1e-5
     for j, c in enumerate(tree_flatten(cache)[0]):
         assert _rel(ranks[f"{arch}/cache{j}"], c.numpy()) <= 1e-5, j
+
+
+@pytest.mark.parametrize("arch", list(UNEVEN))
+@pytest.mark.parametrize("check", ["forward", "gradients", "decode"])
+def test_four_gloo_ranks_with_dims_model_does_not_divide(four_ranks_uneven, arch, check):
+    """On a (1, 4) mesh: 6 query heads and 2 kv heads (the kv products
+    sharded unevenly, 2 of the 4 ranks holding a head, and gathered before
+    the GQA repeat), and the SSD families' scans on their ranks' own heads;
+    each against one device at the (2, 2) checks' tolerances."""
+    {"forward": _check_forward, "gradients": _check_gradients,
+     "decode": _check_decode}[check](four_ranks_uneven, arch)
 
 
 def test_quad_probe_splits_the_attention_quadratic_bytes():
