@@ -55,6 +55,19 @@ Phases, each printing its own line and raising on failure:
            metrics list every step once (the encdec and vlm families are not
            run here: the loop feeds no frames or image embeddings, and its
            train step raises KeyError, as the reference's does)
+  fabric   run_resilient_training at the gemma_2b smoke config over the
+           port's fabric (repro_torch.net): for each run the loop module's
+           LocalCluster is replaced by a NetCluster over a new SimTransport
+           (FABRIC_LINK: 1 ms +- 0.5 latency, 5% loss, reordering and
+           duplication on every link) with FABRIC_SHARDS coordinator shards,
+           under the dse and the durable runtime, each with a trainer kill:
+           the digest equals the loop phase's failure-free LocalCluster
+           run's, the external metrics list every step once; each run's
+           seconds beside the LocalCluster kill run's, its rollbacks and
+           the transport's counts; no kernel launched (no codec). Then the
+           17 pinned seeds of tests/scenarios/regression_seeds.json through
+           repro_torch.sim.explore.run_one (deterministic simulation, host
+           only): each one's events and virtual time, its invariants green
   train_full  one make_train_step of mamba2-370m at full width (421,709,312
            parameters) on 1 x 2048 tokens, f32, under remat "none" and
            "full" from the same state, in turns: median step time and peak
@@ -97,8 +110,9 @@ Phases, each printing its own line and raising on failure:
            active-expert bound beside it; for encdec and vlm the larger of
            the weights a step reads and the cross-attention K/V it projects
            again over the f32 peak); device time, launches and idle
-           share of 8 warmed steps (torch.profiler); a 16-token serving run
-           failure-free and with kill_at=8 give the same durable tokens,
+           share of SERVE_PROFILED warmed steps (torch.profiler); a
+           16-token serving run failure-free and with kill_at=8 give the
+           same durable tokens,
            with the seconds Restore took to replay; gemma-2b's decode timed
            with Tuning.decode_seq_constraint off and on, in turns; then
            teacher-forced decode_step against one forward over 64 / 256
@@ -818,7 +832,10 @@ def phase_trainer(cfg) -> None:
 
 
 # --------------------------------------------------------------------------- #
-def phase_loop(cfg) -> None:
+def phase_loop(cfg) -> dict:
+    """The resilient loop on LocalCluster. Returns the failure-free digest,
+    the steps and the trainer-kill run's seconds, which the fabric phase is
+    held against."""
     from repro_torch.kernels import ops
     from repro_torch.train import loop, run_resilient_training
     from repro_torch.tree import tree_map
@@ -839,7 +856,9 @@ def phase_loop(cfg) -> None:
             cpu = run_resilient_training(root / "cpu", cfg, steps=steps, device="cpu")
         finally:
             loop.init_params = init
+        t1 = time.perf_counter()
         trainer_kill = run_resilient_training(root / "kt", cfg, steps=steps, kill_trainer_at=4)
+        t_kill = time.perf_counter() - t1
         data_kill = run_resilient_training(root / "kd", cfg, steps=steps, kill_data_at=3)
         before = dict(ops.LAUNCHES)
         delta = run_resilient_training(root / "dc", cfg, steps=steps, kill_trainer_at=4,
@@ -875,7 +894,87 @@ def phase_loop(cfg) -> None:
         f"data-kill digests; external metrics steps 0..{steps - 1} once each; delta-codec "
         f"run with a kill completed ({enc} encode launches, {delta.checkpoint_bytes:,} B); "
         f"losses {np.round(got, 6).tolist()}, CPU run of the same loop max rel diff "
-        f"{rel.max():.2e}; {time.perf_counter() - t0:.1f} s")
+        f"{rel.max():.2e}; kill_trainer_at=4 run {t_kill:.2f} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"digest": base.params_digest, "steps": steps, "seconds": t_kill}
+
+
+#: the fabric phase's links: 1 ms +- 0.5 latency, 5% loss, 5% reordering
+#: and 5% duplication on every one, two coordinator shards
+FABRIC_LINK = dict(latency_ms=1.0, jitter_ms=0.5, loss_prob=0.05, reorder_prob=0.05,
+                   dup_prob=0.05)
+FABRIC_SHARDS = 2
+PINNED_SEEDS = HERE / "tests" / "scenarios" / "regression_seeds.json"
+
+
+def phase_fabric(cfg, local: dict) -> dict:
+    """The resilient loop over the port's fabric on the card, then the
+    pinned simulator seeds on the host. ``local`` is phase_loop's record of
+    the same loop on LocalCluster. Returns the kernels' launches on the
+    fabric runs (all 0: they use no codec)."""
+    from repro_torch import net
+    from repro_torch.kernels import ops
+    from repro_torch.sim import FaultPlan
+    from repro_torch.sim.explore import run_one
+    from repro_torch.train import loop, run_resilient_training
+
+    root = RUN_DIR / "fabric"
+    shutil.rmtree(root, ignore_errors=True)
+    steps = local["steps"]
+    cluster_cls = loop.LocalCluster
+    ops.reset_launch_counts()
+    try:
+        for runtime in ("dse", "durable"):
+            transports = []
+
+            def cluster(path, **kw):
+                """In LocalCluster's place for one run: a NetCluster over a
+                new lossy SimTransport, which its shutdown stops."""
+                transport = net.SimTransport(seed=0, default_link=net.LinkSpec(**FABRIC_LINK))
+                transports.append(transport)
+                return net.NetCluster(path, transport=transport, n_shards=FABRIC_SHARDS,
+                                      runtime=runtime, **kw)
+
+            loop.LocalCluster = cluster
+            try:
+                t0 = time.perf_counter()
+                res = run_resilient_training(root / runtime, cfg, steps=steps, kill_trainer_at=4)
+                secs = time.perf_counter() - t0
+            finally:
+                loop.LocalCluster = cluster_cls
+            ext = sorted(s for s, _ in res.external_metrics)
+            if (res.params_digest != local["digest"] or res.final_step != steps
+                    or ext != list(range(steps)) or res.rollbacks < 1):
+                raise AssertionError(f"{cfg.name} over the fabric, {runtime}, kill_trainer_at=4: "
+                                     f"digest {res.params_digest} (LocalCluster failure-free "
+                                     f"{local['digest']}), step {res.final_step}, external "
+                                     f"metrics steps {ext}, rollbacks {res.rollbacks}")
+            if len(transports) != 1 or not transports[0]._closed:
+                raise AssertionError(f"{runtime}: {len(transports)} transports, not stopped")
+            st = transports[0].stats()
+            say("fabric", f"{cfg.name} {runtime} runtime over a {FABRIC_SHARDS}-shard fabric "
+                f"({FABRIC_LINK}), kill_trainer_at=4: digest {res.params_digest} == the "
+                f"LocalCluster failure-free run's; external metrics steps 0..{steps - 1} once "
+                f"each; rollbacks {res.rollbacks}; {secs:.2f} s (LocalCluster kill_trainer_at=4 "
+                f"{local['seconds']:.2f} s); transport sent {st['sent']}, retries "
+                f"{st['retries']}, dropped_loss {st['dropped_loss']}, duplicated "
+                f"{st['duplicated']}, bytes {st['bytes']}")
+        launches = dict(ops.LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"the fabric runs launched a kernel: {launches}")
+
+        t0 = time.perf_counter()
+        pinned = json.loads(PINNED_SEEDS.read_text())["pinned"]
+        for entry in pinned:
+            plan = FaultPlan.from_json(entry["plan"]) if "plan" in entry else None
+            r = run_one(entry["scenario"], int(entry["seed"]), root / "sim", plan=plan)
+            say("fabric", f"pinned {entry['scenario']} seed {entry['seed']}: {r.events} events, "
+                f"{r.virtual_time:.4f} virtual s; invariants green")
+        say("fabric", f"{len(pinned)} pinned simulator seeds replayed through "
+            f"repro_torch.sim.explore.run_one in {time.perf_counter() - t0:.1f} s (host only)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def phase_loop_ssm(cfg) -> dict:
@@ -1224,8 +1323,12 @@ def phase_prefill(card: str, names) -> dict:
 #: keep the phase within the script's time
 SERVE_T = {"dense": 64, "moe": 64, "ssm": 256, "hybrid": 64, "encdec": 64, "vlm": 64}
 #: the f32 decode's steps where its logits are printed against the forward's,
-#: not held (the families checked in float64): 8 warm-up steps and 16 timed
-SERVE_TIMED = 24
+#: not held (the families checked in float64): 8 warm-up steps and 8 timed
+SERVE_TIMED = 16
+#: the warmed decode steps under torch.profiler, whose device time, launches
+#: and idle share are printed, not held: the profiler's own cost grows with
+#: the events it records (8 steps took 9.5-26.4 s a model on an H100)
+SERVE_PROFILED = 4
 #: decode logits against the forward's, relative to max |logit|. gemma-2b's
 #: random weights make its attention a hard argmax (the init takes the
 #: fan-in of wq (D, N, H) as N, so the attention logits have a std near
@@ -1241,8 +1344,7 @@ SERVE_TOL = {"dense": 1e-4, "moe": 1e-4, "ssm": SSM_TOL, "hybrid": 1e-4, "encdec
 SERVE_CHECK_DTYPE = {"dense": torch.float64, "moe": torch.float64, "ssm": torch.float32,
                      "hybrid": torch.float64, "encdec": torch.float64, "vlm": torch.float64}
 #: models whose float64 check is held at a cut of their plan, full width:
-#: name -> (groups, layers, or MoE layers after the dense ones; whether the
-#: float64 decode also runs at full depth, its gap printed, not held).
+#: name -> groups, layers, or MoE layers after the dense ones.
 #: gemma3-4b's random model (wq's fan-in taken as its 8 heads: layer-0
 #: attention logits of std 886) is chaotic even in float64 over 34 layers:
 #: on an H100 its float64 decode and forward part by 1.7e-13 of max |hidden|
@@ -1258,8 +1360,8 @@ SERVE_CHECK_DTYPE = {"dense": torch.float64, "moe": torch.float64, "ssm": torch.
 #: is held at its dense layer and first four MoE layers (22.7 GB in float64).
 #: llama-3.2-vision-90b's first VLM_GROUPS groups (85.3 GB in float64) do
 #: not either: it is held at its first group (51.1 GB in float64)
-SERVE_CHECK_CUT = {"gemma3-4b": (2, True), "granite-moe-3b-a800m": (16, False),
-                   "deepseek-v2-lite-16b": (4, False), "llama-3.2-vision-90b": (1, False)}
+SERVE_CHECK_CUT = {"gemma3-4b": 2, "granite-moe-3b-a800m": 16, "deepseek-v2-lite-16b": 4,
+                   "llama-3.2-vision-90b": 1}
 
 
 def _held(cfg):
@@ -1353,6 +1455,7 @@ def _serve_full(cfg, card: str) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+    t_parts, t0 = {}, time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(param_descs(cfg), gen, dtype=torch.float32, device="cuda")
     n_params = param_count(param_descs(cfg))
@@ -1401,17 +1504,20 @@ def _serve_full(cfg, card: str) -> None:
         del got
         cache = zeros_from_descs(cache_descs(cfg, 1, 64), torch.float32, "cuda")
 
-        def eight_steps():
-            for i in range(8):
+        def profiled_steps():
+            for i in range(SERVE_PROFILED):
                 lg, _ = decode_step(cfg, params, cache, tokens[:, i: i + 1], i, extras=ext)
                 int(torch.argmax(lg[0, 0, : cfg.vocab_size]))
 
-        events = profile(eight_steps)
-        del cache, eight_steps
+        t_parts["f32 decode and forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        events = profile(profiled_steps)
+        del cache, profiled_steps
+    t_parts["profile"] = time.perf_counter() - t0
     kernels, host = by_name(events, device=True), by_name(events, device=False)
     ms = float(np.median(step_ms[8:]))  # the first steps warm up cuBLAS and the allocator
-    dev_ms = sum(m for m, _ in kernels.values()) / 8
-    launches = sum(n for _, n in kernels.values()) / 8
+    dev_ms = sum(m for m, _ in kernels.values()) / SERVE_PROFILED
+    launches = sum(n for _, n in kernels.values()) / SERVE_PROFILED
     b_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
     bound = f"batch-1 HBM bound {b_ms:.3f} ms (weight bytes over 3.35 TB/s)"
     active = ""
@@ -1430,18 +1536,22 @@ def _serve_full(cfg, card: str) -> None:
                   f"experts, {a_params:,.0f} parameters) {a_params * 4 / HBM_BYTES_PER_S * 1e3:.3f}"
                   f" ms, which the one-hot dispatch does not reach: it reads every expert")
     say("serve", f"{cfg.name} decode: median {ms:.3f} ms per token over steps 8..{n32 - 1} "
-        f"({1e3 / ms:.1f} tokens/s); {bound}, {b_ms / ms:.1%} of it{active}; 8 warmed steps "
-        f"under torch.profiler: device "
+        f"({1e3 / ms:.1f} tokens/s); {bound}, {b_ms / ms:.1%} of it{active}; {SERVE_PROFILED} "
+        f"warmed steps under torch.profiler: device "
         f"time {dev_ms:.3f} ms and {launches:.0f} kernel launches per step, idle share "
         f"{1 - dev_ms / ms:.1%} of the median step; {card}")
     for what, table in (("device time per step by kernel", kernels),
                         ("host self time per step by operator (profiled)", host)):
         top = sorted(table.items(), key=lambda kv: -kv[1][0])[:6]
         say("serve", f"{cfg.name} decode {what}: "
-            + "; ".join(f"{k[:60]} {m / 8:.3f} ms x{n / 8:.0f}" for k, (m, n) in top))
+            + "; ".join(f"{k[:60]} {m / SERVE_PROFILED:.3f} ms x{n / SERVE_PROFILED:.0f}"
+                        for k, (m, n) in top))
 
+    t0 = time.perf_counter()
     if cfg.name == "gemma-2b":
         _seq_constraint_timing(cfg, params, tokens, card)
+        t_parts["decode_seq_constraint timing"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
 
     root = RUN_DIR / "serve"
     shutil.rmtree(root, ignore_errors=True)
@@ -1476,18 +1586,20 @@ def _serve_full(cfg, card: str) -> None:
         f"a replay of all 16 takes {t_16:.4f} s; {card}")
     del base, killed
     gc.collect()
+    t_parts["serving runs and replay"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
-    cut, full64 = SERVE_CHECK_CUT.get(cfg.name, (None, True))
+    cut = SERVE_CHECK_CUT.get(cfg.name)
     note = ""
     with torch.no_grad():
         if check == torch.float32:
             rel = rel32
         else:
             e64 = {k: v.to(check) for k, v in ext.items()}
-            if full64:
+            if cut is None:
                 p64 = tree_map(lambda t: t.to(check), params)
                 want64 = forward(held, p64, tokens, extras=e64)[0]
-                rel = rel_all = rel_diff(teacher_forced(p64, check, e=e64)[0], want64)
+                rel = rel_diff(teacher_forced(p64, check, e=e64)[0], want64)
                 note = (f" (in f32 over {n32} tokens the two differ by {rel32:.3e}, and the "
                         f"f32 forward from a "
                         f"float64 one by {rel_diff(want, want64):.3e}: rounding amplified by the "
@@ -1497,7 +1609,6 @@ def _serve_full(cfg, card: str) -> None:
                 note = (f" (in f32 at all {cfg.num_layers} layers over {n32} tokens the two "
                         f"differ by {rel32:.3e}; "
                         f"float64 at all {cfg.num_layers} not run: see SERVE_CHECK_CUT)")
-            if cut is not None:
                 c_cfg, c_p64 = _cut(held, params, cut)
                 del params
                 gc.collect()
@@ -1510,10 +1621,7 @@ def _serve_full(cfg, card: str) -> None:
                         else f"its first {cut} groups" if cfg.family == "vlm"
                         else f"its dense layer and first {cut} MoE layers"
                         if "moe_layers" in c_p64 else f"its first {cut} layers")
-                note += (f"; held at {what} ({c_cfg.num_layers} layers), full width"
-                         + (f": at all {cfg.num_layers} the float64 decode and forward differ "
-                            f"by {rel_all:.3e}, rounding amplified through the layers, not held"
-                            if full64 else ""))
+                note += f"; held at {what} ({c_cfg.num_layers} layers), full width"
                 del c_p64
             note = f" in {str(check).removeprefix('torch.')}" + note
     if rel > tol:
@@ -1530,6 +1638,9 @@ def _serve_full(cfg, card: str) -> None:
     del want, ext
     gc.collect()
     torch.cuda.empty_cache()
+    if check != torch.float32:
+        t_parts[f"{str(check).removeprefix('torch.')} check"] = time.perf_counter() - t0
+    say("time", f"serve {cfg.name}: " + ", ".join(f"{k} {v:.1f} s" for k, v in t_parts.items()))
 
 
 def _seq_constraint_timing(cfg, params, tokens, card: str) -> None:
@@ -1539,7 +1650,7 @@ def _seq_constraint_timing(cfg, params, tokens, card: str) -> None:
     (see SERVE_TOL)."""
     from repro_torch.models import cache_descs, decode_step, tuning, zeros_from_descs
 
-    n = 24
+    n = 16
     step_ms = {False: [], True: []}
     with torch.no_grad():
         for flag in (False, True, True, False):
@@ -1761,7 +1872,7 @@ def phase_ep(card: str) -> dict:
             if t.shape != (1, 1, cfg.vocab_padded) or not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"ep prefill ({r}) logits {tuple(t.shape)}")
         f32_rel = float((last["ep"] - last["einsum"]).abs().max() / last["einsum"].abs().max())
-        n_cut = SERVE_CHECK_CUT[cfg.name][0]
+        n_cut = SERVE_CHECK_CUT[cfg.name]
         cut_cfg, cut = _cut(cfg, params, n_cut)
         del params, last
         gc.collect()
@@ -2006,7 +2117,8 @@ def main() -> int:
     paths["trainer"] = dict(ops.LAUNCHES)
     say("trainer", f"kernel launches on the main path: {paths['trainer']}")
 
-    timed("loop", phase_loop, get_config("gemma_2b", smoke=True))
+    local = timed("loop", phase_loop, get_config("gemma_2b", smoke=True))
+    paths["fabric"] = timed("fabric", phase_fabric, get_config("gemma_2b", smoke=True), local)
     paths["loop_mamba2_codec"] = timed("loop_ssm", phase_loop_ssm,
                                        get_config("mamba2_370m", smoke=True))
     paths["loop_moe_mla_hybrid"] = timed("loop_families", phase_loop_families, NEW_FAMILIES)

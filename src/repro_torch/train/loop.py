@@ -23,7 +23,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..checkpoint import DeltaCheckpointCodec, MetricsStateObject, TrainerStateObject
-from ..core import DelayMessage, LocalCluster
+from ..core import DelayMessage, LocalCluster, RolledBackError
 from ..data import DataPipelineStateObject, SyntheticLMData
 from ..device import resolve_device
 from ..models import init_params, param_descs
@@ -127,9 +127,14 @@ def run_resilient_training(
                 loss, thdr = res
                 steps_run += 1
                 metrics.record(step, loss, thdr)
-            except DelayMessage:
-                # cross-epoch message (Def 4.3): let lagging components apply
-                # pending decisions, then retry the iteration.
+            except (DelayMessage, RolledBackError):
+                # cross-epoch message (Def 4.3), or, under the durable
+                # runtime, a rollback that interrupted this action's commit
+                # (durable/runtime.py fails the request): let lagging
+                # components apply pending decisions, then retry the
+                # iteration against the recovered state. The reference's
+                # loop retries only the first, so a trainer kill under the
+                # durable runtime can end its run with RolledBackError.
                 cluster.refresh_all()
                 continue
 

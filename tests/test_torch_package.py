@@ -14,7 +14,9 @@ REF = ROOT / "src" / "repro"
 
 #: modules the port copies unchanged apart from the package name in imports
 COPIED = sorted(
-    [p.relative_to(REF).as_posix() for d in ("core", "durable", "store") for p in (REF / d).glob("*.py")]
+    [p.relative_to(REF).as_posix()
+     for d in ("core", "durable", "store", "net", "services", "sim") for p in (REF / d).glob("*.py")
+     if p.relative_to(REF).as_posix() != "sim/explore.py"]
     + ["data/__init__.py", "data/pipeline.py", "models/config.py", "configs/gemma_2b.py",
        "configs/mamba2_370m.py", "configs/yi_6b.py", "configs/glm4_9b.py", "configs/gemma3_4b.py",
        "configs/zamba2_1p2b.py", "configs/granite_moe_3b_a800m.py",
@@ -23,11 +25,15 @@ COPIED = sorted(
 )
 
 
-#: modules the port copies with one stated difference, the fits-in-HBM key of
-#: an H100's 80 GB for the TPU v5e's 16 GiB (and its own module path in the
-#: usage line): the substitutions that turn the original into the copy
+#: modules the port copies with one stated difference: the substitutions that
+#: turn the original into the copy. The report: the fits-in-HBM key of an
+#: H100's 80 GB for the TPU v5e's 16 GiB (and its own module path in the
+#: usage line). The seed sweep: its own module path in the repro command a
+#: failure artifact prints (the docstrings keep the reference's, as in every copy)
 ADAPTED = {"analysis/report.py": [("fits_16g", "fits_hbm"), ("| fits |", "| fits 80 GB |"),
-                                  ("-m repro.analysis.", "-m repro_torch.analysis.")]}
+                                  ("-m repro.analysis.", "-m repro_torch.analysis.")],
+           "sim/explore.py": [('"repro: python -m repro.sim.explore "',
+                               '"repro: python -m repro_torch.sim.explore "')]}
 
 
 def _sources():
@@ -49,7 +55,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 28
+    assert len(COPIED) == 46
     assert all((PORT / rel).exists() for rel in COPIED)
 
 
