@@ -735,7 +735,18 @@ def _wait(pred, what: str, timeout: float) -> float:
     return time.perf_counter() - t0
 
 
+def _span_seconds() -> dict:
+    """Seconds by span name of what the recorder holds, drained."""
+    from repro_torch import obs
+
+    out: dict = {}
+    for s in obs.drain()["spans"]:
+        out[s.name] = out.get(s.name, 0.0) + (s.t1 - s.t0) / 1e9
+    return out
+
+
 def phase_trainer(cfg) -> None:
+    from repro_torch import obs
     from repro_torch.checkpoint import DeltaCheckpointCodec, MetricsStateObject, TrainerStateObject
     from repro_torch.core import DelayMessage, LocalCluster
     from repro_torch.data import DataPipelineStateObject, SyntheticLMData
@@ -760,6 +771,8 @@ def phase_trainer(cfg) -> None:
         return torch.cat([t.reshape(-1).float() for t in tree_flatten(so.params)[0]])
 
     cluster = LocalCluster(root, group_commit_interval=0.02)
+    obs.drain()
+    obs.enable()  # the codec's parts are read from its spans
     try:
         cluster.add("data", lambda: DataPipelineStateObject(root / "data", data))
         t0 = time.perf_counter()
@@ -769,13 +782,13 @@ def phase_trainer(cfg) -> None:
             root / "trainer", init_state, step_fn, codec=codec, device="cuda"),
             group_commit_interval=3600.0)
         t_base = time.perf_counter() - t0
-        base_t = dict(codec.last_timing)
+        base_t = _span_seconds()
         cluster.add("metrics", lambda: MetricsStateObject(root / "metrics"))
         trainer = cluster.get("trainer")
         say("trainer", f"{cfg.name} x{cfg.num_layers} layer: "
             f"{sum(t.numel() for t in tree_flatten(trainer.params)[0]):,} parameters; "
-            f"version-0 base persist {t_base:.1f} s (device {base_t['device_s']:.2f} s, "
-            f"savez {base_t['savez_s']:.1f} s), {trainer.bytes_written:,} B")
+            f"version-0 base persist {t_base:.1f} s (device {base_t['codec.encode.device']:.2f} s, "
+            f"savez {base_t['codec.encode.compress']:.1f} s), {trainer.bytes_written:,} B")
         losses = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -783,23 +796,26 @@ def phase_trainer(cfg) -> None:
             torch.cuda.synchronize()
             losses.append(loss)
             say("trainer", f"step {step}: loss {loss:.6f} ({time.perf_counter() - t0:.2f} s)")
+        _span_seconds()
         t0 = time.perf_counter()
         label = trainer.runtime.maybe_persist(force=True)
         t_snap = time.perf_counter() - t0
-        enc_t = dict(codec.last_timing)
+        enc_t = _span_seconds()
         t_durable = t_snap + _wait(lambda: trainer.runtime.stats()["committed"] >= label,
                                    "trainer persist durable", 900)
         _wait(lambda: trainer.runtime.boundary.get("trainer", -1) >= label,
               "trainer version in the recovery boundary", 300)
         say("trainer", f"delta persist v{label}: snapshot {t_snap:.1f} s (device encode "
-            f"{enc_t['device_s']:.2f} s, savez {enc_t['savez_s']:.1f} s), durable after "
+            f"{enc_t['codec.encode.device']:.2f} s, savez {enc_t['codec.encode.compress']:.1f} s), "
+            f"durable after "
             f"{t_durable:.1f} s")
         pre = flat_params(trainer)
 
+        _span_seconds()
         t0 = time.perf_counter()
         cluster.kill("trainer")
         t_restore = time.perf_counter() - t0
-        dec_t = dict(codec.last_timing)
+        dec_t = _span_seconds()
         trainer = cluster.get("trainer")
         if trainer.current_step() != 2:
             raise AssertionError(f"restored step {trainer.current_step()} != 2")
@@ -817,8 +833,8 @@ def phase_trainer(cfg) -> None:
         if worst > 1.0:
             raise AssertionError(f"restored params off by {worst:.3f} x the codec bound")
         say("trainer", f"kill + restore through v{hdr['prev']} (base) -> v{label} (delta): "
-            f"{t_restore:.1f} s (blob load {dec_t['load_s']:.1f} s, device decode "
-            f"{dec_t['device_s']:.3f} s); step 2 restored, params within "
+            f"{t_restore:.1f} s (blob load {dec_t['codec.decode.load']:.1f} s, device decode "
+            f"{dec_t['codec.decode.device']:.3f} s); step 2 restored, params within "
             f"{worst:.3f} x the codec bound of the pre-kill params")
         step, loss = _drive_step(cluster, DelayMessage)
         if step != 2 or not math.isfinite(loss):
@@ -827,6 +843,8 @@ def phase_trainer(cfg) -> None:
         # the full-width trainer is not persisted again on shutdown
         cluster.kill("trainer", restart=False)
     finally:
+        obs.disable()
+        obs.drain()
         cluster.shutdown()
         shutil.rmtree(root, ignore_errors=True)
 

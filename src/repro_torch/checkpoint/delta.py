@@ -17,16 +17,22 @@ optimizer leaf in ``jax.tree_util`` order (``m*``, ``step``, ``v*``).
 
 Restore replays base + deltas through the decode kernel and loads the
 moments of the last blob directly.
+
+Each call records the recorder's (``obs``) spans: ``codec.encode`` with
+``codec.encode.device`` (flatten, the fp16 policy, the encode kernel and
+the copies to the host) and ``codec.encode.compress`` (``np.savez_compressed``);
+``codec.decode`` with ``codec.decode.load`` (``np.load``, the copies to the
+device, the unflatten) and ``codec.decode.device`` (the decode kernel).
 """
 from __future__ import annotations
 
 import io
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from ..tree import TreeDef, tree_flatten, tree_unflatten
 
@@ -83,67 +89,62 @@ def _sync(device: torch.device) -> None:
 class DeltaCheckpointCodec:
     def __init__(self, base_every: int = 8) -> None:
         self.base_every = base_every
-        #: seconds of the last encode / decode_chain, by part
-        self.last_timing: Dict[str, float] = {}
 
     def encode(self, version: int, state, prev_flat: Optional[torch.Tensor]):
         """state = (params, opt_state). Returns (blob, new params stream on
         the device). prev_flat None => full params base."""
-        t0 = time.perf_counter()
-        params, opt = state
-        p_flat, _, _ = _flatten(params)
-        opt_arrays = _opt_host_arrays(opt)
-        is_base = prev_flat is None or prev_flat.numel() != p_flat.numel()
-        if is_base:
-            arrays = dict(kind=np.array(0), flat=p_flat.cpu().numpy(), **opt_arrays)
-        else:
-            codes, scales = kops.delta_encode(_pad_blocks(p_flat), _pad_blocks(prev_flat))
-            arrays = dict(kind=np.array(1), codes=codes.cpu().numpy(),
-                          scales=scales.cpu().numpy(), n=np.array(p_flat.numel()),
-                          **opt_arrays)
-        t1 = time.perf_counter()
-        buf = io.BytesIO()
-        np.savez_compressed(buf, **arrays)
-        blob = buf.getvalue()
-        self.last_timing = {"device_s": t1 - t0, "savez_s": time.perf_counter() - t1}
-        return blob, p_flat
+        with obs.span("codec.encode", version=version):
+            with obs.span("codec.encode.device"):
+                params, opt = state
+                p_flat, _, _ = _flatten(params)
+                opt_arrays = _opt_host_arrays(opt)
+                is_base = prev_flat is None or prev_flat.numel() != p_flat.numel()
+                if is_base:
+                    arrays = dict(kind=np.array(0), flat=p_flat.cpu().numpy(), **opt_arrays)
+                else:
+                    codes, scales = kops.delta_encode(_pad_blocks(p_flat),
+                                                      _pad_blocks(prev_flat))
+                    arrays = dict(kind=np.array(1), codes=codes.cpu().numpy(),
+                                  scales=scales.cpu().numpy(), n=np.array(p_flat.numel()),
+                                  **opt_arrays)
+            with obs.span("codec.encode.compress"):
+                buf = io.BytesIO()
+                np.savez_compressed(buf, **arrays)
+            return buf.getvalue(), p_flat
 
     def decode_chain(self, blobs: List[bytes], p_shapes, p_treedef, o_shapes, o_treedef,
                      device):
         """Replay [base, delta, ...] on ``device``; the LAST blob carries the
         optimizer moments. Returns ((params, opt_state), params stream)."""
         device = torch.device(device)
-        load_s = device_s = 0.0
         flat: Optional[torch.Tensor] = None
         last = None
-        for blob in blobs:
-            t0 = time.perf_counter()
-            z = np.load(io.BytesIO(blob))
-            last = z
-            if int(z["kind"]) == 0:
-                flat = torch.from_numpy(z["flat"]).to(device)
-                load_s += time.perf_counter() - t0
-                continue
-            if flat is None:
-                raise ValueError("delta blob before any base")
-            codes = torch.from_numpy(z["codes"]).to(device)
-            scales = torch.from_numpy(z["scales"]).to(device)
-            n = int(z["n"])
-            t1 = time.perf_counter()
-            load_s += t1 - t0
-            dec = kops.delta_decode(codes, scales, _pad_blocks(flat), dtype=torch.float32)
-            flat = dec.reshape(-1)[:n]
-            _sync(device)
-            device_s += time.perf_counter() - t1
-        if flat is None or last is None:
-            raise ValueError("empty blob chain")
-        t0 = time.perf_counter()
-        params = _unflatten(flat, p_shapes, p_treedef)
-        o_leaves = [
-            torch.from_numpy(np.asarray(last[f"o{i}"])).to(device=device, dtype=dt).reshape(shape)
-            for i, (shape, dt) in enumerate(o_shapes)
-        ]
-        opt = tree_unflatten(o_treedef, o_leaves)
-        _sync(device)
-        self.last_timing = {"load_s": load_s + time.perf_counter() - t0, "device_s": device_s}
+        with obs.span("codec.decode"):
+            for blob in blobs:
+                with obs.span("codec.decode.load"):
+                    z = np.load(io.BytesIO(blob))
+                    last = z
+                    if int(z["kind"]) == 0:
+                        flat = torch.from_numpy(z["flat"]).to(device)
+                        continue
+                    if flat is None:
+                        raise ValueError("delta blob before any base")
+                    codes = torch.from_numpy(z["codes"]).to(device)
+                    scales = torch.from_numpy(z["scales"]).to(device)
+                    n = int(z["n"])
+                with obs.span("codec.decode.device"):
+                    dec = kops.delta_decode(codes, scales, _pad_blocks(flat), dtype=torch.float32)
+                    flat = dec.reshape(-1)[:n]
+                    _sync(device)
+            if flat is None or last is None:
+                raise ValueError("empty blob chain")
+            with obs.span("codec.decode.load"):
+                params = _unflatten(flat, p_shapes, p_treedef)
+                o_leaves = [
+                    torch.from_numpy(np.asarray(last[f"o{i}"])).to(device=device, dtype=dt)
+                    .reshape(shape)
+                    for i, (shape, dt) in enumerate(o_shapes)
+                ]
+                opt = tree_unflatten(o_treedef, o_leaves)
+                _sync(device)
         return (params, opt), flat

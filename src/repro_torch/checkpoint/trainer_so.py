@@ -18,23 +18,51 @@ MetricsStateObject:
     rolled-back step's metric is rolled back with it;
   * ``flush_external`` is barrier-gated — the outside world only ever sees
     metrics that survive any failure (Failure Transparency).
+
+Both record the recorder's (``obs``) spans at the port's own call sites:
+``trainer.train_on`` and ``metrics.record`` with their ``dse.start_action``
+/ ``dse.end_action`` children, ``trainer.step`` (the step and the wait for
+its loss), ``dse.connect``, ``persist.snapshot`` (``persist.d2h``,
+``persist.compress``) and ``persist.write`` on the IO thread,
+``trainer.on_crash``, ``restore`` (``restore.read``, ``restore.inflate``,
+``restore.h2d``); the counters ``persist.raw_bytes``,
+``persist.stored_bytes``, ``restore.read_bytes``, ``restore.raw_bytes``, and
+``dse.refresh_ns`` / ``dse.refresh_rounds`` on the background refresher.
 """
 from __future__ import annotations
 
 import io
 import json
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.ids import Header
 from ..core.state_object import StateObject, VersionStore
 from ..device import resolve_device
 from ..tree import tree_flatten, tree_unflatten
 from .delta import DeltaCheckpointCodec, _flatten
+
+#: the thread of ``LocalCluster``'s background Refresh rounds
+REFRESHER = "dse-refresher"
+
+
+def _refresh(so: StateObject) -> None:
+    """``so``'s Refresh; on the background refresher, timed and counted."""
+    if not (obs.enabled() and threading.current_thread().name == REFRESHER):
+        StateObject.Refresh(so)
+        return
+    t0 = time.perf_counter_ns()
+    try:
+        StateObject.Refresh(so)
+    finally:
+        obs.add_ns("dse.refresh_ns", time.perf_counter_ns() - t0)
+        obs.count("dse.refresh_rounds")
 
 
 class TrainerStateObject(StateObject):
@@ -89,7 +117,11 @@ class TrainerStateObject(StateObject):
         else:
             buf = io.BytesIO()
             leaves, _ = tree_flatten(state)
-            np.savez_compressed(buf, *[l.cpu().numpy() for l in leaves])
+            with obs.span("persist.d2h"):
+                arrays = [l.cpu().numpy() for l in leaves]
+            with obs.span("persist.compress"):
+                np.savez_compressed(buf, *arrays)
+            del arrays
             body = buf.getvalue()
             is_base = True
         hdr = json.dumps({
@@ -107,22 +139,44 @@ class TrainerStateObject(StateObject):
     def Persist(self, version: int, metadata: bytes, callback: Callable[[], None]) -> None:
         # Snapshot must be consistent: runtime holds the exclusive epoch, so
         # no train action is in flight. The host copies wait for queued steps.
-        blob = self._snapshot_blob(version)
+        with obs.span("persist.snapshot", version=version) as snap:
+            blob = self._snapshot_blob(version)
+        if obs.enabled():
+            obs.count("persist.raw_bytes", sum(t.numel() * t.element_size() for t in
+                                               tree_flatten((self.params, self.opt_state))[0]))
+            obs.count("persist.stored_bytes", len(blob))
         if self.codec is not None:
             self._chain[version] = blob
 
         def _io() -> None:
-            try:
-                self.store.write(version, blob, metadata)
-            except RuntimeError:
-                return
+            with obs.span("persist.write", parent=snap):
+                try:
+                    self.store.write(version, blob, metadata)
+                except RuntimeError:
+                    return
             self.bytes_written += len(blob)
             callback()
 
         self.spawn_io(_io)
 
+    def Connect(self, config) -> None:
+        # the version-0 persist of a fresh incarnation, or the restore of a
+        # restarted one, runs inside
+        with obs.span("dse.connect") as s:
+            super().Connect(config)
+            s.tag(world=self.runtime.world)
+
+    def Refresh(self) -> None:
+        _refresh(self)
+
     def Restore(self, version: int) -> bytes:
-        payload, meta = self.store.read(version)
+        with obs.span("restore", world=self.runtime.world, version=version):
+            return self._restore(version)
+
+    def _restore(self, version: int) -> bytes:
+        with obs.span("restore.read"):
+            payload, meta = self.store.read(version)
+        obs.count("restore.read_bytes", len(payload))
         hdr, body = self._split_blob(payload)
         if self.codec is not None:
             # walk explicit parent pointers down to a base (stale blobs from
@@ -132,7 +186,8 @@ class TrainerStateObject(StateObject):
             while True:
                 blob = self._chain.get(v)
                 if blob is None:
-                    blob, _ = self.store.read(v)
+                    with obs.span("restore.read"):
+                        blob, _ = self.store.read(v)
                 h, b = self._split_blob(blob)
                 bodies.append(b)
                 if h.get("base", True) or h.get("prev") is None:
@@ -150,9 +205,17 @@ class TrainerStateObject(StateObject):
         else:
             z = np.load(io.BytesIO(body))
             _, treedef = tree_flatten((self.params, self.opt_state))
-            state = tree_unflatten(
-                treedef, [torch.from_numpy(z[k]).to(self.device) for k in z.files]
-            )
+
+            def leaf(k: str) -> torch.Tensor:
+                # one leaf inflated and copied at a time: one leaf's host copy
+                # is alive at once
+                with obs.span("restore.inflate"):
+                    a = z[k]
+                obs.count("restore.raw_bytes", a.nbytes)
+                with obs.span("restore.h2d"):
+                    return torch.from_numpy(a).to(self.device)
+
+            state = tree_unflatten(treedef, [leaf(k) for k in z.files])
         self.params, self.opt_state = state
         self.step = int(hdr["step"])
         self.loss_history = [tuple(r) for r in hdr["history"]]
@@ -168,35 +231,43 @@ class TrainerStateObject(StateObject):
         self.store.prune(version)
 
     def on_crash(self) -> None:
-        self.store.poison()
-        self.store.drop_memory()
-        self._chain = {}
-        self._prev_flat = None
-        self._last_label = None
-        self._since_base = 0
-        self.params, self.opt_state = self._init_state_fn()
-        self.step = 0
-        self.loss_history = []
+        with obs.span("trainer.on_crash", crashed_world=self.runtime.world):
+            self.store.poison()
+            self.store.drop_memory()
+            self._chain = {}
+            self._prev_flat = None
+            self._last_label = None
+            self._since_base = 0
+            self.params, self.opt_state = self._init_state_fn()
+            self.step = 0
+            self.loss_history = []
 
     # -- service API -----------------------------------------------------------
     def train_on(self, step: int, tokens: np.ndarray, header: Optional[Header] = None,
                  extras: Optional[dict] = None):
         """One speculative train step. Returns (loss, header) or None."""
-        if not self.StartAction(header):
-            return None
-        if step != self.step:
-            # stale/duplicate batch relative to restored state: refuse inside
-            # the action so the driver resyncs the cursor.
-            self.EndAction()
-            return ("resync", self.step)
-        batch = {"tokens": tokens, **(extras or {})}
-        self.params, self.opt_state, loss = self.step_fn(
-            self.params, self.opt_state, batch
-        )
-        loss = float(loss)
-        self.loss_history.append((self.step, loss))
-        self.step += 1
-        return loss, self.EndAction()
+        with obs.span("trainer.train_on", step=step):
+            with obs.span("dse.start_action"):
+                started = self.StartAction(header)
+            if not started:
+                return None
+            if step != self.step:
+                # stale/duplicate batch relative to restored state: refuse inside
+                # the action so the driver resyncs the cursor.
+                with obs.span("dse.end_action"):
+                    self.EndAction()
+                return ("resync", self.step)
+            batch = {"tokens": tokens, **(extras or {})}
+            # the step's self time is the host's wait for the loss
+            with obs.span("trainer.step"):
+                self.params, self.opt_state, loss = self.step_fn(
+                    self.params, self.opt_state, batch
+                )
+                loss = float(loss)
+            self.loss_history.append((self.step, loss))
+            self.step += 1
+            with obs.span("dse.end_action"):
+                return loss, self.EndAction()
 
     def current_step(self) -> int:
         return self.step
@@ -254,13 +325,20 @@ class MetricsStateObject(StateObject):
         with self._mu:
             self.records = []
 
+    def Refresh(self) -> None:
+        _refresh(self)
+
     def record(self, step: int, loss: float, header: Optional[Header] = None) -> bool:
-        if not self.StartAction(header):
-            return False
-        with self._mu:
-            self.records.append((step, loss))
-        self.EndAction()
-        return True
+        with obs.span("metrics.record", step=step):
+            with obs.span("dse.start_action"):
+                started = self.StartAction(header)
+            if not started:
+                return False
+            with self._mu:
+                self.records.append((step, loss))
+            with obs.span("dse.end_action"):
+                self.EndAction()
+            return True
 
     def flush_external(self, timeout: float = 30.0) -> List[Tuple[int, float]]:
         """Barrier-gated export: returns only non-speculative metrics."""

@@ -11,6 +11,13 @@ train step runs, as in the reference. A batch is ``{"tokens": ...}`` and
 the family's extras (the encdec ``"frames"``, the vlm ``"image_embeds"``),
 arrays or tensors, which each step moves to the parameters' device; the
 microbatches slice the extras by rows as they slice the tokens.
+
+A train step records the recorder's (``obs``) spans ``train_step`` (entry
+to return: every launch enqueued, no wait for the device) and its phases
+``step.h2d``, ``step.forward`` (forward and loss), ``step.backward``
+(gradients, the zero ones and a microbatch's accumulation) and
+``step.optimizer`` (AdamW), so that a device trace can say which phase
+launched what.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..models.config import ModelConfig
 from ..models.transformer import chunked_lm_loss, decode_step, forward, lm_loss
 from ..models.tuning import get_tuning
@@ -50,46 +58,58 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     def train_step(params, opt_state, batch: Dict):
         """(params, opt_state, {"tokens": (B, S+1) int, extras}) ->
         (new params, new opt_state, loss as a 0-d f32 tensor)."""
+        with obs.span("train_step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch: Dict):
         tun = get_tuning()
         leaves, td = tree_flatten(params)
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         tree = tree_unflatten(td, leaves)
         dev = leaves[0].device
-        tokens, extras = _on(dev, batch)
+        with obs.span("step.h2d"):
+            tokens, extras = _on(dev, batch)
 
         def value_and_grad(tok, ext):
             with torch.enable_grad():
-                out, _, aux = forward(cfg, tree, tok[:, :-1], extras=ext, remat=remat)
-                if tun.loss_chunk:
-                    loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], aux, tun.loss_chunk)
-                else:
-                    loss = lm_loss(cfg, out, tok[:, 1:], aux)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            # a leaf the forward does not reach (zamba2's shared block below
-            # its first site) has a zero gradient, as under jax.grad
-            return loss.detach(), [torch.zeros_like(p) if g is None else g
-                                   for p, g in zip(leaves, grads)]
+                with obs.span("step.forward"):
+                    out, _, aux = forward(cfg, tree, tok[:, :-1], extras=ext, remat=remat)
+                    if tun.loss_chunk:
+                        loss = chunked_lm_loss(cfg, tree, out, tok[:, 1:], aux, tun.loss_chunk)
+                    else:
+                        loss = lm_loss(cfg, out, tok[:, 1:], aux)
+                with obs.span("step.backward"):
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                    # a leaf the forward does not reach (zamba2's shared block
+                    # below its first site) has a zero gradient, as under jax.grad
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(leaves, grads)]
+            return loss.detach(), grads
 
         mb = tun.microbatch
         if mb > 1 and tokens.shape[0] % mb == 0:
             # gradient accumulation: divides saved-activation memory by mb.
             # f32 gradients summed in microbatch order from zeros, then / mb
             n = tokens.shape[0] // mb
-            gsum = [torch.zeros(p.shape, dtype=F32, device=dev) for p in leaves]
-            lsum = torch.zeros((), dtype=F32, device=dev)
+            with obs.span("step.backward"):
+                gsum = [torch.zeros(p.shape, dtype=F32, device=dev) for p in leaves]
+                lsum = torch.zeros((), dtype=F32, device=dev)
             for i in range(mb):
                 rows = slice(i * n, (i + 1) * n)
                 loss_mb, g = value_and_grad(tokens[rows], {k: v[rows] for k, v in extras.items()})
-                gsum = [a + b.to(F32) for a, b in zip(gsum, g)]
-                lsum = lsum + loss_mb
-            grads = [g / mb for g in gsum]
-            loss = lsum / mb
+                with obs.span("step.backward"):
+                    gsum = [a + b.to(F32) for a, b in zip(gsum, g)]
+                    lsum = lsum + loss_mb
+            with obs.span("step.backward"):
+                grads = [g / mb for g in gsum]
+                loss = lsum / mb
         else:
             loss, grads = value_and_grad(tokens, extras)
-        new_params, new_opt = adamw_update(
-            tree_unflatten(td, [p.detach() for p in leaves]),
-            tree_unflatten(td, list(grads)), opt_state, opt_cfg,
-        )
+        with obs.span("step.optimizer"):
+            new_params, new_opt = adamw_update(
+                tree_unflatten(td, [p.detach() for p in leaves]),
+                tree_unflatten(td, list(grads)), opt_state, opt_cfg,
+            )
         return new_params, new_opt, loss
 
     return train_step
