@@ -12,6 +12,8 @@ TrainerStateObject:
     checkpoint, which is exactly the paper's persistence-off-critical-path;
   * ``Restore`` loads params/opt/step; with the DeltaCheckpointCodec,
     versions between bases are int8 deltas (CUDA delta codec kernels).
+    Without it a version is an ``.npz`` of every leaf (``npz.py``): leaves
+    with a non-zero bit stored, all-zero ones deflated once per shape.
 
 MetricsStateObject:
   * records (step, loss) under actions that consume trainer headers, so a
@@ -26,12 +28,13 @@ its loss), ``dse.connect``, ``persist.snapshot`` (``persist.d2h``,
 ``persist.compress``) and ``persist.write`` on the IO thread,
 ``trainer.on_crash``, ``restore`` (``restore.read``, ``restore.inflate``,
 ``restore.h2d``); the counters ``persist.raw_bytes``,
-``persist.stored_bytes``, ``restore.read_bytes``, ``restore.raw_bytes``, and
+``persist.stored_bytes``, ``restore.read_bytes``, ``restore.raw_bytes``, the
+plain path's ``persist.leaves_stored``, ``persist.leaves_deflated``,
+``persist.members_reused`` and ``restore.members_reused``, and
 ``dse.refresh_ns`` / ``dse.refresh_rounds`` on the background refresher.
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -46,6 +49,7 @@ from ..core.ids import Header
 from ..core.state_object import StateObject, VersionStore
 from ..device import resolve_device
 from ..tree import tree_flatten, tree_unflatten
+from . import npz
 from .delta import DeltaCheckpointCodec, _flatten
 
 #: the thread of ``LocalCluster``'s background Refresh rounds
@@ -107,34 +111,41 @@ class TrainerStateObject(StateObject):
                 self._prev_flat is None
                 or self._since_base >= self.codec.base_every
             )
-            body, self._prev_flat = self.codec.encode(
+            blob, self._prev_flat = self.codec.encode(
                 version, state, None if force_base else self._prev_flat
             )
+            body = [blob]
             prev_label = None if force_base else self._last_label
             self._since_base = 0 if force_base else self._since_base + 1
             self._last_label = version
             is_base = force_base
         else:
-            buf = io.BytesIO()
             leaves, _ = tree_flatten(state)
             with obs.span("persist.d2h"):
-                arrays = [l.cpu().numpy() for l in leaves]
+                members = npz.to_host(leaves)
             with obs.span("persist.compress"):
-                np.savez_compressed(buf, *arrays)
-            del arrays
-            body = buf.getvalue()
+                packed = npz.pack(members)
+            del members
+            obs.count("persist.leaves_stored", packed.stored)
+            obs.count("persist.leaves_deflated", packed.deflated)
+            obs.count("persist.members_reused", packed.reused)
+            body = packed.parts
             is_base = True
         hdr = json.dumps({
             "step": self.step, "history": self.loss_history,
             "prev": prev_label, "base": is_base,
         }).encode()
-        return len(hdr).to_bytes(4, "little") + hdr + body
+        # spaces after the JSON put the body at a multiple of 64 bytes, so
+        # the stored leaves are read in place, aligned
+        hdr += b" " * (-(4 + len(hdr)) % 64)
+        return b"".join([len(hdr).to_bytes(4, "little"), hdr, *body])
 
     @staticmethod
     def _split_blob(blob: bytes):
+        """(header, body); the body a view of ``blob``, not a copy."""
         n = int.from_bytes(blob[:4], "little")
         hdr = json.loads(blob[4 : 4 + n].decode())
-        return hdr, blob[4 + n :]
+        return hdr, memoryview(blob)[4 + n :]
 
     def Persist(self, version: int, metadata: bytes, callback: Callable[[], None]) -> None:
         # Snapshot must be consistent: runtime holds the exclusive epoch, so
@@ -203,19 +214,19 @@ class TrainerStateObject(StateObject):
             self._last_label = version
             self._since_base = 0  # force a fresh base on the next persist
         else:
-            z = np.load(io.BytesIO(body))
+            z = npz.Reader(body)
             _, treedef = tree_flatten((self.params, self.opt_state))
 
-            def leaf(k: str) -> torch.Tensor:
-                # one leaf inflated and copied at a time: one leaf's host copy
-                # is alive at once
+            def leaf(i: int) -> torch.Tensor:
+                # one leaf read (a stored one in place) and copied at a time
                 with obs.span("restore.inflate"):
-                    a = z[k]
+                    a = z.array(i)
                 obs.count("restore.raw_bytes", a.nbytes)
                 with obs.span("restore.h2d"):
-                    return torch.from_numpy(a).to(self.device)
+                    return npz.to_device(a, self.device)
 
-            state = tree_unflatten(treedef, [leaf(k) for k in z.files])
+            state = tree_unflatten(treedef, [leaf(i) for i in range(len(z))])
+            obs.count("restore.members_reused", z.reused)
         self.params, self.opt_state = state
         self.step = int(hdr["step"])
         self.loss_history = [tuple(r) for r in hdr["history"]]

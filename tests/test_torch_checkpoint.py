@@ -155,3 +155,46 @@ def test_model_blobs_interchange(arch):
     delta, _ = codec.encode(1, _to_port(s1), flat0)
     assert _keys(base) == _keys(jb) and _keys(delta) == _keys(jd)
     _check(_decode_jax([base, delta], s0), s0, s1, delta)
+
+
+def _plain_state(arch: str, moments: str):
+    params, opt = _model_state(arch)
+    if moments == "zero":   # a version 0: the moments and the step all zero
+        opt = jax.tree_util.tree_map(np.zeros_like, opt)
+    return params, opt
+
+
+def _bits(leaves):
+    return [(np.asarray(x).dtype, np.asarray(x).shape, np.asarray(x).tobytes()) for x in leaves]
+
+
+@pytest.mark.parametrize("moments", ["zero", "trained"])
+@pytest.mark.parametrize("arch", ["gemma3_4b", "mamba2_370m"])
+def test_plain_version_blobs_interchange(tmp_path, arch, moments):
+    """The plain path (no codec): a version blob the port writes restores
+    through the reference's ``TrainerStateObject.Restore``, and one the
+    reference writes (``np.savez_compressed``) through the port's, bit for
+    bit, with the step and the loss history."""
+    from repro.checkpoint.trainer_so import TrainerStateObject as JaxTrainer
+    from repro_torch.checkpoint import TrainerStateObject
+
+    state = _plain_state(arch, moments)
+    blank = jax.tree_util.tree_map(lambda x: np.full_like(x, 7), state)
+    want = _bits(jax.tree_util.tree_leaves(state))
+
+    port = TrainerStateObject(tmp_path / "port_w", lambda: _to_port(state), None, device="cpu")
+    port.step, port.loss_history = 5, [(4, 1.25)]
+    ref = JaxTrainer(tmp_path / "ref_r", lambda: blank, None)
+    ref.store.write(0, port._snapshot_blob(0), b"meta")
+    assert ref.Restore(0) == b"meta"
+    assert _bits(jax.tree_util.tree_leaves((ref.params, ref.opt_state))) == want
+    assert ref.step == 5 and ref.loss_history == [(4, 1.25)]
+
+    ref = JaxTrainer(tmp_path / "ref_w", lambda: state, None)
+    ref.step, ref.loss_history = 6, [(5, 0.5)]
+    port = TrainerStateObject(tmp_path / "port_r", lambda: _to_port(blank), None, device="cpu")
+    port.store.write(0, ref._snapshot_blob(0), b"meta")
+    assert port._restore(0) == b"meta"
+    got = [t.numpy() for t in tree_flatten((port.params, port.opt_state))[0]]
+    assert _bits(got) == want
+    assert port.step == 6 and port.loss_history == [(5, 0.5)]

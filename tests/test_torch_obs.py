@@ -205,6 +205,17 @@ def test_every_span_of_a_run_with_a_trainer_kill(tmp_path: Path):
         blob, _ = trainer.store.read(0)
         assert v0["counters"]["persist.stored_bytes"] == len(blob)
         assert v0["counters"]["persist.raw_bytes"] == _state_bytes(trainer)
+        # version 0: every moment leaf (and the step, and the weights that
+        # start at 0) deflated, each shape once; every other weight stored
+        params = tree_flatten(trainer.params)[0]
+        zero = [p for p in params if not p.any()]
+        moments = tree_flatten(trainer.opt_state)[0]
+        assert not any(m.any() for m in moments)
+        c = v0["counters"]
+        assert c["persist.leaves_deflated"] == len(moments) + len(zero)
+        assert c["persist.leaves_stored"] == len(params) - len(zero) > 0
+        shapes = {(tuple(t.shape), t.dtype) for t in moments + zero}
+        assert c["persist.members_reused"] == len(moments) + len(zero) - len(shapes)
         _drive(cluster, 3)
         cluster.kill("trainer")
         _drive(cluster, 3)
@@ -241,6 +252,8 @@ def test_every_span_of_a_run_with_a_trainer_kill(tmp_path: Path):
             + spans["restore.h2d"]} == {"restore"}
     assert rec["counters"]["restore.read_bytes"] == len(blob)
     assert rec["counters"]["restore.raw_bytes"] == v0["counters"]["persist.raw_bytes"]
+    # the restore inflates each distinct deflated member once
+    assert rec["counters"]["restore.members_reused"] == c["persist.members_reused"] > 0
     connects = {s.req for s in spans["dse.connect"]}
     assert f"world={world}" in connects
     # a step: six steps trained (three, then three replayed), each one's
