@@ -39,30 +39,32 @@ from cardbench.tokens import TokenStream  # noqa: E402
 
 
 def program_readings(cell, seed: int, device, wrap_step=None, wrap_tokens=None) -> dict:
-    """The program's readings of the first steps, through its train step."""
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.optim import AdamWConfig, adamw_init
+    """The program's readings of the first steps, through its train step,
+    under the configuration's step options."""
+    from repro_torch.models.tuning import tuning
+    from repro_torch.optim import adamw_init
 
     config, traffic = cell.config, cell.traffic
     m = config["model"]
     descs = harness.family(config).descs(m)
-    cfg = harness.program_config(config)
     opt = dict(traffic["optimizer"])
     stream = TokenStream(m["vocab_size"], int(config["train_global_batch"]),
                          int(traffic["seq_len"]), seed, **traffic["tokens"])
     fed = stream if wrap_tokens is None else wrap_tokens(stream)
-    step_fn = make_train_step(cfg, AdamWConfig(**opt), remat=traffic["remat"])
+    cfg, options = harness.program_model(config)
+    step_fn = harness.program_step(cfg, traffic)
     if wrap_step is not None:
         step_fn = wrap_step(step_fn)
-    params = weights.tree(descs, seed, device)
-    state = adamw_init(params)
     out = {"loss": []}
-    for i in range(int(traffic["warmup_steps"])):
-        params, state, loss = step_fn(params, state, {"tokens": fed.batch_at(i)})
-        out["loss"].append(float(loss))
-        if i == 0:
-            out["grad"] = check.grad_norms(descs, state["m"], opt["b1"])
-    out["update"] = check.change_norms(descs, params, weights.leaves(descs, seed, device))
+    with tuning(**options):
+        params = weights.tree(descs, seed, device)
+        state = adamw_init(params)
+        for i in range(int(traffic["warmup_steps"])):
+            params, state, loss = step_fn(params, state, {"tokens": fed.batch_at(i)})
+            out["loss"].append(float(loss))
+            if i == 0:
+                out["grad"] = check.grad_norms(descs, state["m"], opt["b1"])
+        out["update"] = check.change_norms(descs, params, weights.leaves(descs, seed, device))
     return out
 
 

@@ -3,7 +3,10 @@
 Everything that belongs to a configuration, a traffic mix or a metric is
 data found by name: ``configs/<config>.json`` (the file ``BENCHMARK.json``
 names), ``traffic/<traffic>.json``, ``metrics/<metric>.py``; the model
-family picks ``reference/<family>.py`` and ``flops/<family>.py``.
+family picks ``reference/<family>.py`` and ``flops/<family>.py``. A
+configuration's ``model`` object holds the system's ModelConfig fields, its
+sub-configs (``moe``, ``mla``, ``ssm``) as objects, and the step options
+(``Tuning``'s fields), under which the program runs its whole run.
 
 Set-up builds a ``LocalCluster`` with the system's data, trainer and
 metrics StateObjects (data -> trainer -> metrics). The trainer starts from
@@ -32,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -144,13 +148,49 @@ def deterministic():
         torch.backends.cudnn.allow_tf32 = saved[2]
 
 
-def program_config(config: dict):
-    """The system's ModelConfig for a configuration file."""
-    from repro_torch.models.config import ModelConfig, SSMConfig
+def program_model(config: dict):
+    """The system's ModelConfig for a configuration file, and the step
+    options the file sets. ``model`` holds ModelConfig's fields: a
+    sub-object becomes the dataclass its field names (``moe``, ``mla``,
+    ``ssm``), a list a tuple where the field is one. Its keys that are
+    fields of ``repro_torch.models.tuning.Tuning`` are step options, which
+    the ModelConfig, a verbatim copy of the JAX package's, cannot hold: the
+    program runs under ``tuning(**options)``, the reference never. Any other
+    key, at either depth, raises ``KeyError`` naming it."""
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.tuning import Tuning
 
-    m = dict(config["model"])
-    ssm = m.pop("ssm", None)
-    return ModelConfig(name=config["name"], ssm=SSMConfig(**ssm) if ssm else None, **m)
+    hints = typing.get_type_hints(ModelConfig)
+    options = {f.name for f in dataclasses.fields(Tuning)}
+    fields, opts = {}, {}
+    for key, value in config["model"].items():
+        if key in options:
+            opts[key] = value
+        elif key not in hints or key == "name":
+            raise KeyError(f"{config['name']}: model key {key!r} is neither a field of the "
+                           f"system's ModelConfig nor a step option")
+        elif isinstance(value, dict):
+            [sub] = [t for t in typing.get_args(hints[key]) if dataclasses.is_dataclass(t)]
+            unknown = sorted(set(value) - {f.name for f in dataclasses.fields(sub)})
+            if unknown:
+                raise KeyError(f"{config['name']}: model key {key}.{unknown[0]!r} is not a "
+                               f"field of the system's {sub.__name__}")
+            fields[key] = sub(**value)
+        elif isinstance(value, list) and typing.get_origin(hints[key]) is tuple:
+            fields[key] = tuple(value)
+        else:
+            fields[key] = value
+    return ModelConfig(name=config["name"], **fields), opts
+
+
+def program_step(cfg, traffic: dict):
+    """The system's train step (``launch.steps.make_train_step``) for a
+    ModelConfig under a traffic mix. It reads the step options when it runs,
+    so a caller runs it under ``tuning(**options)`` (``program_model``)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    return make_train_step(cfg, AdamWConfig(**traffic["optimizer"]), remat=traffic["remat"])
 
 
 def family(config: dict):
@@ -211,120 +251,127 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, *, device="cud
 
 
 def _run(cell, seed, seconds, traced, dev, t_process, wrap_step, wrap_tokens):
+    t_enter = time.perf_counter()
     from repro_torch.checkpoint import MetricsStateObject, TrainerStateObject
     from repro_torch.core import DelayMessage, LocalCluster, RolledBackError
     from repro_torch.data import DataPipelineStateObject
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.models.tuning import tuning
+    from repro_torch.optim import adamw_init
 
     config, traffic = cell.config, cell.traffic
     m = config["model"]
     descs = family(config).descs(m)
-    cfg = program_config(config)
-    check_layout(cfg, descs)
-    batch, seq = int(config["train_global_batch"]), int(traffic["seq_len"])
-    opt = dict(traffic["optimizer"])
-    warmup = int(traffic["warmup_steps"])
-    stream = TokenStream(m["vocab_size"], batch, seq, seed, **traffic["tokens"])
-    fed = stream if wrap_tokens is None else wrap_tokens(stream)
-    spans = Spans()
+    # the step options hold from here to the program's last reading; the
+    # reference, after them, runs without
+    cfg, options = program_model(config)
+    with tuning(**options):
+        check_layout(cfg, descs)
+        batch, seq = int(config["train_global_batch"]), int(traffic["seq_len"])
+        opt = dict(traffic["optimizer"])
+        warmup = int(traffic["warmup_steps"])
+        stream = TokenStream(m["vocab_size"], batch, seq, seed, **traffic["tokens"])
+        fed = stream if wrap_tokens is None else wrap_tokens(stream)
+        spans = Spans()
 
-    step_fn = make_train_step(cfg, AdamWConfig(**opt), remat=traffic["remat"])
-    if wrap_step is not None:
-        step_fn = wrap_step(step_fn)
+        step_fn = program_step(cfg, traffic)
+        if wrap_step is not None:
+            step_fn = wrap_step(step_fn)
 
-    def timed_step(params, opt_state, b):
-        with spans("step"):
-            params, opt_state, loss = step_fn(params, opt_state, b)
-            loss.item()  # the loss on the host, as train_on reads it
-        return params, opt_state, loss
+        def timed_step(params, opt_state, b):
+            with spans("step"):
+                params, opt_state, loss = step_fn(params, opt_state, b)
+                loss.item()  # the loss on the host, as train_on reads it
+            return params, opt_state, loss
 
-    def init_state():
-        params = weights.tree(descs, seed, dev)
-        return params, adamw_init(params)
+        def init_state():
+            params = weights.tree(descs, seed, dev)
+            return params, adamw_init(params)
 
-    root = Path(tempfile.mkdtemp(prefix="cardbench-"))
-    trace_dev = trace.DeviceTrace(traced)
-    cluster = None
-    try:
-        cluster = LocalCluster(root)
-        cluster.add("data", lambda: DataPipelineStateObject(root / "data", fed))
-        with spans("persist_v0"):
-            cluster.add("trainer", lambda: TrainerStateObject(root / "trainer", init_state,
-                                                              timed_step, device=dev),
-                        group_commit_interval=float(traffic["trainer_group_commit_interval_s"]))
-        cluster.add("metrics", lambda: MetricsStateObject(root / "metrics"))
-        driver = Driver(cluster, (DelayMessage, RolledBackError))
+        root = Path(tempfile.mkdtemp(prefix="cardbench-"))
+        trace_dev = trace.DeviceTrace(traced)
+        cluster = None
+        try:
+            cluster = LocalCluster(root)
+            cluster.add("data", lambda: DataPipelineStateObject(root / "data", fed))
+            with spans("persist_v0"):
+                cluster.add("trainer", lambda: TrainerStateObject(root / "trainer", init_state,
+                                                                  timed_step, device=dev),
+                            group_commit_interval=float(traffic["trainer_group_commit_interval_s"]))
+            cluster.add("metrics", lambda: MetricsStateObject(root / "metrics"))
+            driver = Driver(cluster, (DelayMessage, RolledBackError))
 
-        # -- set-up steps, the program's readings taken as they pass ------
-        prog: dict = {"loss": []}
+            # -- set-up steps, the program's readings taken as they pass ------
+            prog: dict = {"loss": []}
 
-        def warm(step, loss):
-            trainer = cluster.get("trainer")
-            prog["loss"].append(loss)
-            if trainer.current_step() == 1:
-                prog["grad"] = check.grad_norms(descs, trainer.opt_state["m"], opt["b1"])
-            if trainer.current_step() == warmup:
-                prog["update"] = check.change_norms(descs, trainer.params,
-                                                    weights.leaves(descs, seed, dev))
-                return True
-            return False
+            def warm(step, loss):
+                trainer = cluster.get("trainer")
+                prog["loss"].append(loss)
+                if trainer.current_step() == 1:
+                    prog["grad"] = check.grad_norms(descs, trainer.opt_state["m"], opt["b1"])
+                if trainer.current_step() == warmup:
+                    prog["update"] = check.change_norms(descs, trainer.params,
+                                                        weights.leaves(descs, seed, dev))
+                    return True
+                return False
 
-        driver.run(warm)
-        trace_dev.start()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+            with spans("warmup"):
+                driver.run(warm)
+            trace_dev.start()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
 
-        # -- the window ---------------------------------------------------
-        kills = list(traffic.get("kills", []))
-        replay: dict = {"first": None, "at": None, "kill_sum": None, "replay_sum": None}
-        start_step = cluster.get("trainer").current_step()
-        window_steps = 0
-        t0 = time.perf_counter_ns()
-        wall0 = time.time_ns() - t0
-        deadline = t0 + int(seconds * 1e9)
+            # -- the window ---------------------------------------------------
+            kills = list(traffic.get("kills", []))
+            replay: dict = {"first": None, "at": None, "kill_sum": None, "replay_sum": None}
+            start_step = cluster.get("trainer").current_step()
+            window_steps = 0
+            t0 = time.perf_counter_ns()
+            wall0 = time.time_ns() - t0
+            deadline = t0 + int(seconds * 1e9)
 
-        def window(step, loss):
-            nonlocal window_steps
-            window_steps += 1
-            trainer = cluster.get("trainer")
-            if replay["at"] is not None and replay["replay_sum"] is None \
-                    and trainer.current_step() == replay["at"]:
-                with spans("check"):
-                    replay["replay_sum"] = check.checksums([trainer.params, trainer.opt_state])
-            if kills and window_steps == kills[0]["after_window_steps"]:
-                k = kills.pop(0)
-                if k["target"] == "trainer" and replay["at"] is None:
+            def window(step, loss):
+                nonlocal window_steps
+                window_steps += 1
+                trainer = cluster.get("trainer")
+                if replay["at"] is not None and replay["replay_sum"] is None \
+                        and trainer.current_step() == replay["at"]:
                     with spans("check"):
-                        replay["first"] = dict(trainer.loss_history)
-                        replay["at"] = trainer.current_step()
-                        replay["kill_sum"] = check.checksums([trainer.params, trainer.opt_state])
-                with spans("restore"):
-                    cluster.kill(k["target"])
-            return time.perf_counter_ns() >= deadline
+                        replay["replay_sum"] = check.checksums([trainer.params, trainer.opt_state])
+                if kills and window_steps == kills[0]["after_window_steps"]:
+                    k = kills.pop(0)
+                    if k["target"] == "trainer" and replay["at"] is None:
+                        with spans("check"):
+                            replay["first"] = dict(trainer.loss_history)
+                            replay["at"] = trainer.current_step()
+                            replay["kill_sum"] = check.checksums([trainer.params,
+                                                                  trainer.opt_state])
+                    with spans("restore"):
+                        cluster.kill(k["target"])
+                return time.perf_counter_ns() >= deadline
 
-        driver.run(window)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t1 = time.perf_counter_ns()
-        trainer = cluster.get("trainer")
-        end_step = trainer.current_step()
-        history = list(trainer.loss_history)
-        records = list(cluster.get("metrics").records)
-        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-        t_stop = time.perf_counter()
-        events = trace_dev.stop()
-        trace_stop_s = time.perf_counter() - t_stop
-        rollbacks = driver.rollbacks
-    finally:
-        if cluster is not None:
-            # shutdown persists every member; the trainer's whole state
-            # would take minutes of host zlib, and nothing reads it
-            with contextlib.suppress(KeyError):
-                cluster.get("trainer").runtime.mark_dead()
-            cluster.shutdown()
-        shutil.rmtree(root, ignore_errors=True)
+            driver.run(window)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter_ns()
+            trainer = cluster.get("trainer")
+            end_step = trainer.current_step()
+            history = list(trainer.loss_history)
+            records = list(cluster.get("metrics").records)
+            peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+            t_stop = time.perf_counter()
+            events = trace_dev.stop()
+            trace_stop_s = time.perf_counter() - t_stop
+            rollbacks = driver.rollbacks
+        finally:
+            if cluster is not None:
+                # shutdown persists every member; the trainer's whole state
+                # would take minutes of host zlib, and nothing reads it
+                with contextlib.suppress(KeyError):
+                    cluster.get("trainer").runtime.mark_dead()
+                cluster.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
     setup_s = (t0 / 1e9) - t_process
+    set_up = {n: (b - a) / 1e9 for n, a, b in spans.items if n in ("persist_v0", "warmup")}
     del cluster, trainer, driver
     gc.collect()
     if dev.type == "cuda":
@@ -389,8 +436,10 @@ def _run(cell, seed, seconds, traced, dev, t_process, wrap_step, wrap_tokens):
           f"reduce {reduce_s:.3f} s ({len(events)} device events), reference {reference_s:.3f} s, "
           f"peak {peak} bytes, {time.perf_counter() - t_process:.3f} s since process start; "
           f"window steps {sum(run.window_spans('step')):.3f} s over {len(run.window_spans('step'))}, "
-          f"restores {run.window_spans('restore')} s, persist_v0 "
-          f"{[round((b - a) / 1e9, 3) for n, a, b in spans.items if n == 'persist_v0']} s",
+          f"restores {run.window_spans('restore')} s; set-up: {t_enter - t_process:.3f} s to the "
+          f"harness, persist_v0 (the weights with it) {set_up['persist_v0']:.3f} s, warm-up steps "
+          f"{set_up['warmup']:.3f} s, {setup_s - sum(set_up.values()) - (t_enter - t_process):.3f} "
+          f"s else",
           file=sys.stderr, flush=True)
     return out
 

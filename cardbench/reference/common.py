@@ -1,17 +1,20 @@
 """Plain PyTorch reference of the training step the benchmark times.
 
 A frozen copy of the arithmetic of the port's step (the SSM and hybrid
-families' forward, the next-token loss, autograd and AdamW), written out
-again with nothing but ``torch``: it imports nothing of the system under
-test, and nothing of JAX. The benchmark hands it the same initial weights
-and token batches as the program and holds the program's readings to its
-own (``cardbench/check.py``). It runs in float32 with TF32 off unless a
-caller asks for TF32 (the control, ``cardbench/calibrate.py``).
+families' forward, the next-token loss with a family's auxiliary loss,
+autograd and AdamW), written out again with nothing but ``torch``: it
+imports nothing of the system under test, and nothing of JAX. The
+benchmark hands it the same initial weights and token batches as the
+program and holds the program's readings to its own
+(``cardbench/check.py``). It runs in float32 with TF32 off unless a caller
+asks for TF32 (the control, ``cardbench/calibrate.py``).
 
 A model is described by the ``model`` object of a configuration file
 (``cardbench/configs/<name>.json``): the family, widths and depth. The
 family's module (``cardbench/reference/<family>.py``) gives its parameter
-layout (``descs``) and its forward (``forward``).
+layout (``descs``) and its forward (``forward``: logits, or logits and an
+auxiliary loss). The ``model`` object's step options (``Tuning``'s fields)
+are the program's; the reference reads no such key.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 
@@ -297,6 +301,16 @@ def head(params, x, m):
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
+def blockwise(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``), so that the reference holds one block's
+    activations at a time: the same arithmetic, bit for bit, in the memory
+    that the program's ``remat="full"`` takes at the cell's batch."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def positions_of(tokens):
     B, S = tokens.shape
     return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
@@ -355,11 +369,17 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], state: d
 def train_step(forward, m: dict, paths: List[str], leaves: List[torch.Tensor], state: dict,
                tokens: torch.Tensor, opt: dict):
     """One step: forward, loss, gradients by autograd (zero where a leaf is
-    not reached), AdamW. -> (new leaves, new state, loss as a 0-d tensor)."""
+    not reached), AdamW. -> (new leaves, new state, loss as a 0-d tensor).
+    A family's ``forward`` returns its logits, or ``(logits, aux)`` where
+    the model adds an auxiliary loss (a router's load balance) to the
+    next-token loss, as the program's ``lm_loss(cfg, out, labels, aux)``."""
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        logits = forward(m, unflatten(paths, leaves), tokens[:, :-1])
+        out = forward(m, unflatten(paths, leaves), tokens[:, :-1])
+        logits, aux = out if isinstance(out, tuple) else (out, None)
         loss = lm_loss(m, logits, tokens[:, 1:])
+        if aux is not None:
+            loss = loss + aux
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     new_p, new_state = adamw_update([p.detach() for p in leaves], grads, state, opt)

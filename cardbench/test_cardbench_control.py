@@ -1,7 +1,8 @@
 """The control on the card, at a cell's own sizes: the reference in TF32,
 the precision below the configured float32, put in the program's place,
 fails a number of the cell; the program itself passes them all. Three
-seeds a cell; about a minute a cell."""
+seeds a cell, each with the planted faults too; about five minutes for
+the mamba2 cell (16 x 2048 tokens a step), one for the zamba2 cell."""
 import pytest
 
 torch = pytest.importorskip("torch")

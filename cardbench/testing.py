@@ -1,11 +1,12 @@
 """Smoke-size cells for the benchmark's own tests, on the CPU.
 
 Each cell of ``BENCHMARK.json`` with its configuration shrunk in width,
-depth and vocabulary (same family, same traffic, same limits), so that a
-whole run takes seconds. A run can go in a fresh process (``python -m
-cardbench.testing <cell> <fault|-> <trace> <seconds>``, which prints the
-result line), so that what the test process has loaded, JAX included, does
-not reach the harness's check of loaded modules.
+depth and vocabulary by the file's own ``smoke`` object (same family, same
+traffic, same limits), so that a whole run takes seconds. A run can go in
+a fresh process (``python -m cardbench.testing <cell> <fault|-> <trace>
+<seconds>``, which prints the result line), so that what the test process
+has loaded, JAX included, does not reach the harness's check of loaded
+modules.
 """
 from __future__ import annotations
 
@@ -17,21 +18,25 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SMOKE_SSM = {"d_state": 16, "d_conv": 4, "expand": 2, "head_dim": 16, "n_groups": 1, "chunk_size": 8}
-SMOKE_MODEL = {
-    "ssm": dict(num_layers=4, d_model=64, num_heads=8, num_kv_heads=8, vocab_size=512),
-    "hybrid": dict(num_layers=5, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
-                   vocab_size=512, hybrid_attn_period=2),
-}
 SMOKE_SEQ = 32
 
 
+def merged(base: dict, over: dict) -> dict:
+    """``base`` with ``over`` laid on it, sub-objects merged key by key."""
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
 def smoke_cell(name: str):
+    """The cell with its configuration's ``smoke`` object laid over its
+    ``model``, two rows a step and ``SMOKE_SEQ`` tokens a row."""
     from cardbench import harness
 
     cell = harness.load_cell(name)
     config = copy.deepcopy(cell.config)
-    config["model"].update(SMOKE_MODEL[config["model"]["family"]], ssm=dict(SMOKE_SSM))
+    config["model"] = merged(config["model"], config.get("smoke", {}))
     config["train_global_batch"] = 2
     cell.config = config
     cell.traffic = dict(cell.traffic, seq_len=SMOKE_SEQ)
